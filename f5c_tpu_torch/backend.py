@@ -1,0 +1,49 @@
+"""Device resolution and the toolchain probe.
+
+The port keeps no global device state: the entry point resolves one
+``torch.device`` here and passes it down.  Counterpart of the JAX
+package's platform selection (``f5c_tpu/cli.py:_make_pipeline`` and
+``Pipeline._use_pallas``).
+"""
+
+from __future__ import annotations
+
+import importlib.util
+
+import torch
+
+
+def resolve_device(name: str) -> torch.device:
+    """``"cuda"`` -> the current CUDA device (an error when there is no
+    card: the port never falls back to the host silently); ``"cpu"`` ->
+    the host, where every op runs its plain PyTorch version."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass --device cpu to run the "
+                "plain PyTorch versions on the host")
+        return torch.device("cuda", torch.cuda.current_device())
+    raise ValueError(f"unknown device {name!r} (expected 'cuda' or 'cpu')")
+
+
+def probe() -> dict:
+    """What this process can run: torch and CUDA versions, the card, the
+    CUDA compiler that builds ``csrc/``, and whether ``triton`` imports."""
+    from .ops._build import find_nvcc
+
+    info = {
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "cuda_available": torch.cuda.is_available(),
+        "nvcc": find_nvcc(),
+        "triton": importlib.util.find_spec("triton") is not None,
+    }
+    if info["cuda_available"]:
+        props = torch.cuda.get_device_properties(0)
+        info.update(device_name=props.name,
+                    sm_count=props.multi_processor_count,
+                    capability=f"{props.major}.{props.minor}",
+                    device_count=torch.cuda.device_count())
+    return info

@@ -1,0 +1,145 @@
+"""Build ``csrc/*.cu`` with nvcc into one shared library and load it.
+
+The kernels have a plain C interface and are loaded with ``ctypes``: no
+PyTorch headers are compiled, so a build takes seconds.  The library is
+built at first use into ``build/f5c_tpu_torch/<hash>/`` at the root of the
+checkout, keyed by a hash of the sources and the flags, and reused while
+neither changes.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "f5c_tpu_torch")
+
+# --fmad=false: no FMA contraction, so the ABEA fill is bit-identical to
+# the reference; never --use_fast_math (IEEE division and accurate
+# transcendentals are part of the contract)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_vp = ctypes.c_void_p
+_int = ctypes.c_int
+# C entry points: every pointer and the stream as void*, sizes as int
+_SIGNATURES = {
+    "f5c_abea_fill": [_vp] * 14 + [_int] * 2 + [_vp],
+    "f5c_abea_walk": [_vp] * 8 + [_int] + [_vp],
+    "f5c_hmm_forward": [_vp] * 16 + [_int] * 5 + [_vp],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def find_nvcc() -> str | None:
+    """nvcc on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    return cand if os.path.isfile(cand) else None
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _digest(sources: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _load(_build())
+        return _lib
+
+
+def _build() -> str:
+    sources = _sources()
+    out_dir = os.path.join(BUILD_ROOT, _digest(sources))
+    so_path = os.path.join(out_dir, "libf5c_tpu_torch.so")
+    if os.path.isfile(so_path):
+        build_info.update(path=so_path, seconds=0.0, cached=True)
+        return so_path
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "f5c_tpu_torch/csrc need the CUDA toolkit")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{so_path}.tmp{os.getpid()}"
+    t0 = time.time()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, so_path)
+    build_info.update(path=so_path, seconds=time.time() - t0, cached=False,
+                      log=log)
+    return so_path
+
+
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.f5c_error_string.argtypes = [ctypes.c_int]
+    lib.f5c_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_tensor(name, t, dtype, ndim, device) -> None:
+    """A wrapper's argument check: raise unless ``t`` is a contiguous
+    tensor of ``dtype`` with ``ndim`` dims on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def stream_handle(device) -> int:
+    """torch's current CUDA stream on ``device``, as the C entry points
+    take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_error(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise when a C entry point reports a CUDA error (it returns
+    ``cudaGetLastError()`` right after its launch)."""
+    if err != 0:
+        msg = lib.f5c_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

@@ -1,0 +1,122 @@
+"""ABEA wrappers: a CUDA tensor goes to the hand-written kernels of
+``csrc/abea.cu``, a CPU tensor to the plain PyTorch version of
+``ops/abea.py``.  Counterpart of ``f5c_tpu/ops/abea_ring.py``.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, launches on torch's current stream and counts the launch in
+``launches``.  There is no fallback: a CUDA tensor launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .abea import PAD, abea_fill_plain, abea_walk_plain
+
+launches = {"abea_fill": 0, "abea_walk": 0}
+
+
+def abea_fill(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
+              level_mean, level_stdv, level_log_stdv, params, band_off,
+              n_bands: int):
+    """Band fill (layout: ops/abea.py).  ``n_bands`` is ``band_off[-1]``,
+    passed from the host so that sizing the outputs never waits for the
+    device.  Returns (trace u8 [n_bands, 128], llk i32 [n_bands],
+    start_e i32 [B])."""
+    dev = ev_pool.device
+    B = ev_len.shape[0]
+    for name, t, dt, nd in (
+            ("ev_pool", ev_pool, torch.float32, 1),
+            ("ev_off", ev_off, torch.int64, 1),
+            ("ev_len", ev_len, torch.int32, 1),
+            ("rk_pool", rk_pool, torch.int32, 1),
+            ("rk_off", rk_off, torch.int64, 1),
+            ("rk_len", rk_len, torch.int32, 1),
+            ("level_mean", level_mean, torch.float32, 1),
+            ("level_stdv", level_stdv, torch.float32, 1),
+            ("level_log_stdv", level_log_stdv, torch.float32, 1),
+            ("params", params, torch.float32, 2),
+            ("band_off", band_off, torch.int64, 1)):
+        _build.check_tensor(name, t, dt, nd, dev)
+    if (ev_off.shape[0] != B or rk_off.shape[0] != B
+            or rk_len.shape[0] != B or band_off.shape[0] != B + 1
+            or params.shape != (B, 6)):
+        raise ValueError("abea_fill: per-read arrays disagree on B")
+    if not (level_mean.shape == level_stdv.shape == level_log_stdv.shape):
+        raise ValueError("abea_fill: model tables differ in length")
+    if dev.type == "cpu":
+        if int(band_off[-1]) != n_bands:
+            raise ValueError("abea_fill: n_bands != band_off[-1]")
+        return abea_fill_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off,
+                               rk_len, level_mean, level_stdv,
+                               level_log_stdv, params, band_off)
+    if dev.type != "cuda":
+        raise ValueError(f"abea_fill: unsupported device {dev}")
+    trace = torch.empty((n_bands, PAD), dtype=torch.uint8, device=dev)
+    llk = torch.empty(n_bands, dtype=torch.int32, device=dev)
+    start_e = torch.empty(B, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.f5c_abea_fill(
+        ev_pool.data_ptr(), ev_off.data_ptr(), ev_len.data_ptr(),
+        rk_pool.data_ptr(), rk_off.data_ptr(), rk_len.data_ptr(),
+        level_mean.data_ptr(), level_stdv.data_ptr(),
+        level_log_stdv.data_ptr(), params.data_ptr(), band_off.data_ptr(),
+        trace.data_ptr(), llk.data_ptr(), start_e.data_ptr(),
+        level_mean.shape[0], B, _build.stream_handle(dev))
+    _build.check_error(lib, "f5c_abea_fill", err)
+    launches["abea_fill"] += 1
+    return trace, llk, start_e
+
+
+def abea_walk(trace, llk, band_off, start_e, rk_len, byte_off,
+              n_bytes: int):
+    """Backtrace walk into the ragged 2-bit output (layout: ops/abea.py).
+    ``n_bytes`` is ``byte_off[-1]``, passed from the host.  Returns
+    (flat u8 [n_bytes], n i32 [B])."""
+    dev = trace.device
+    B = start_e.shape[0]
+    for name, t, dt, nd in (
+            ("trace", trace, torch.uint8, 2),
+            ("llk", llk, torch.int32, 1),
+            ("band_off", band_off, torch.int64, 1),
+            ("start_e", start_e, torch.int32, 1),
+            ("rk_len", rk_len, torch.int32, 1),
+            ("byte_off", byte_off, torch.int64, 1)):
+        _build.check_tensor(name, t, dt, nd, dev)
+    if (trace.shape[1] != PAD or llk.shape[0] != trace.shape[0]
+            or band_off.shape[0] != B + 1 or rk_len.shape[0] != B
+            or byte_off.shape[0] != B + 1):
+        raise ValueError("abea_walk: inconsistent shapes")
+    if dev.type == "cpu":
+        if int(byte_off[-1]) != n_bytes:
+            raise ValueError("abea_walk: n_bytes != byte_off[-1]")
+        return abea_walk_plain(trace, llk, band_off, start_e, rk_len,
+                               byte_off)
+    if dev.type != "cuda":
+        raise ValueError(f"abea_walk: unsupported device {dev}")
+    flat = torch.zeros(n_bytes, dtype=torch.uint8, device=dev)
+    n = torch.empty(B, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.f5c_abea_walk(
+        trace.data_ptr(), llk.data_ptr(), band_off.data_ptr(),
+        start_e.data_ptr(), rk_len.data_ptr(), byte_off.data_ptr(),
+        flat.data_ptr(), n.data_ptr(), B, _build.stream_handle(dev))
+    _build.check_error(lib, "f5c_abea_walk", err)
+    launches["abea_walk"] += 1
+    return flat, n
+
+
+def abea_align(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
+               level_mean, level_stdv, level_log_stdv, params, band_off,
+               byte_off, n_bands: int, n_bytes: int):
+    """One ABEA device step: fill then walk.  The contract of the JAX
+    package's abea_align_device_ring (flat packed dirs, start_e, n) on
+    ragged per-read inputs."""
+    trace, llk, start_e = abea_fill(
+        ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len, level_mean,
+        level_stdv, level_log_stdv, params, band_off, n_bands)
+    flat, n = abea_walk(trace, llk, band_off, start_e, rk_len, byte_off,
+                        n_bytes)
+    return flat, start_e, n
