@@ -1,14 +1,18 @@
-"""f5c-tpu-torch command line: ``call-methylation`` on a CUDA card.
+"""f5c-tpu-torch command line: ``call-methylation`` and ``eventalign`` on
+a CUDA card.
 
     python -m f5c_tpu_torch.cli call-methylation -b reads.bam -g genome.fa \\
         -r reads.fasta --slow5 signals.blow5 [-o out.tsv] \\
         [--meth-out-version {1,2}] [--device {cuda,cpu}]
+    python -m f5c_tpu_torch.cli eventalign -b reads.bam -g genome.fa \\
+        -r reads.fasta --slow5 signals.blow5 [-o out.tsv] \\
+        [--summary summary.tsv] [--sam | --paf | --m6anet] [--device ...]
 
-The options are the JAX package's (``f5c_tpu.cli._add_common_meth_args``);
-``--device`` selects the torch device.  The default is ``cuda`` and a run
-with no card is an error: ``--device cpu`` is the explicit request for
-the kernels' plain PyTorch versions on the host.  The other subcommands
-are not ported yet (ROADMAP.md).
+The options are the JAX package's (``f5c_tpu.cli._add_common_meth_args``
+and its eventalign options); ``--device`` selects the torch device.  The
+default is ``cuda`` and a run with no card is an error: ``--device cpu``
+is the explicit request for the kernels' plain PyTorch versions on the
+host.  The other subcommands are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ def _make_pipeline(args, device):
     opt = Options(
         min_mapq=args.min_mapq,
         keep_secondary=args.secondary == "yes",
-        meth_out_version=args.meth_out_version,
+        meth_out_version=getattr(args, "meth_out_version", 2),
         rna=args.rna,
         pore=args.pore,
         kmer_model_path=args.kmer_model,
@@ -69,12 +73,35 @@ def _make_pipeline(args, device):
     return Pipeline(args.bam, args.genome, args.reads, opt, device)
 
 
+def _add_device_arg(p) -> None:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="torch device: 'cuda' runs the CUDA kernels (an "
+                        "error without a card); 'cpu' runs their plain "
+                        "PyTorch versions")
+
+
+def _add_eventalign_args(p) -> None:
+    """The JAX CLI's eventalign options (f5c_tpu/cli.py:248-261)."""
+    p.add_argument("--summary", help="write per-read summary TSV")
+    p.add_argument("--sam", action="store_true")
+    p.add_argument("--sam-out-version", type=int, choices=[1, 2], default=2,
+                   help="SAM output: 1 = events-as-CIGAR record, 2 = base "
+                        "alignment + si/ss/sc/sh tags")
+    p.add_argument("--paf", action="store_true")
+    p.add_argument("--m6anet", action="store_true")
+    p.add_argument("--scale-events", action="store_true")
+    p.add_argument("--samples", action="store_true")
+    p.add_argument("--signal-index", action="store_true")
+    p.add_argument("--collapse-events", action="store_true")
+    p.add_argument("--print-read-names", action="store_true")
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     ap = argparse.ArgumentParser(
         prog="f5c-tpu-torch",
         description="nanopore signal analysis on PyTorch and CUDA "
-                    "(call-methylation)")
+                    "(call-methylation, eventalign)")
     ap.add_argument("--version", action="version",
                     version=f"f5c-tpu-torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -82,10 +109,12 @@ def main(argv=None) -> int:
                        conflict_handler="resolve")
     _add_common_meth_args(p)
     p.add_argument("--meth-out-version", type=int, choices=[1, 2], default=2)
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="torch device: 'cuda' runs the CUDA kernels (an "
-                        "error without a card); 'cpu' runs their plain "
-                        "PyTorch versions")
+    _add_device_arg(p)
+    p = sub.add_parser("eventalign", help="signal-to-reference alignment",
+                       conflict_handler="resolve")
+    _add_common_meth_args(p)
+    _add_eventalign_args(p)
+    _add_device_arg(p)
     args = ap.parse_args(argv)
 
     unported = [flag for flag, given in (
@@ -107,14 +136,23 @@ def main(argv=None) -> int:
     from .backend import resolve_device
 
     try:
+        if args.cmd == "eventalign":
+            from .pipeline.eventalign import engine_name
+
+            engine_name()
         device = resolve_device(args.device)
-    except RuntimeError as e:
+    except (RuntimeError, ValueError) as e:
         print(f"f5c-tpu-torch: error: {e}", file=sys.stderr)
         return 2
     pipe = _make_pipeline(args, device)
     out = _out_fh(args.output)
     try:
-        pipe.call_methylation(out=out)
+        if args.cmd == "eventalign":
+            from .pipeline.eventalign import run_eventalign
+
+            run_eventalign(pipe, args, out=out)
+        else:
+            pipe.call_methylation(out=out)
     finally:
         if out is not sys.stdout:
             out.close()

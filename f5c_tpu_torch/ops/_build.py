@@ -1,10 +1,12 @@
 """Build ``csrc/*.cu`` with nvcc into one shared library and load it.
 
 The kernels have a plain C interface and are loaded with ``ctypes``: no
-PyTorch headers are compiled, so a build takes seconds.  The library is
-built at first use into ``build/f5c_tpu_torch/<hash>/`` at the root of the
-checkout, keyed by a hash of the sources and the flags, and reused while
-neither changes.  Nothing here runs at import time.
+PyTorch headers are compiled, so a build takes seconds.  Each ``.cu`` is
+compiled by its own nvcc process, all started together, and the objects
+are linked into one library.  It is built at first use into
+``build/f5c_tpu_torch/<hash>/`` at the root of the checkout, keyed by a
+hash of the sources, the headers (``*.cuh``) and the flags, and reused
+while none of them changes.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -28,8 +30,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "f5c_tpu_torch")
 # the reference; never --use_fast_math (IEEE division and accurate
 # transcendentals are part of the contract)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
@@ -38,6 +39,8 @@ _SIGNATURES = {
     "f5c_abea_fill": [_vp] * 14 + [_int] * 2 + [_vp],
     "f5c_abea_walk": [_vp] * 8 + [_int] + [_vp],
     "f5c_hmm_forward": [_vp] * 16 + [_int] * 5 + [_vp],
+    "f5c_abea_fill_window": [_vp] * 15 + [_int] * 5 + [_vp],
+    "f5c_abea_walk_window": [_vp] * 5 + [_int] * 3 + [_vp],
 }
 
 _lock = threading.Lock()
@@ -60,9 +63,13 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def _digest(sources: list[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + _headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -90,15 +97,30 @@ def _build() -> str:
         raise RuntimeError("nvcc not found: the CUDA kernels of "
                            "f5c_tpu_torch/csrc need the CUDA toolkit")
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so_path}.tmp{os.getpid()}"
+    tag = f"tmp{os.getpid()}"
+    tmp = f"{so_path}.{tag}"
     t0 = time.time()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    objs = [os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
+            for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    log = "".join(out for out, _ in outs)
+    rc = next((code for _, code in outs if code != 0), 0)
+    if rc == 0:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        rc = link.returncode
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
         f.write(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
     os.replace(tmp, so_path)
     build_info.update(path=so_path, seconds=time.time() - t0, cached=False,
                       log=log)

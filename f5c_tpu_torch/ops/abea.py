@@ -85,47 +85,40 @@ def _shift(row: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return padded.gather(1, idx)
 
 
-def abea_fill_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
-                    level_mean, level_stdv, level_log_stdv, params,
-                    band_off):
-    """Band fill for every read, batched: a Python loop over bands.
-    Returns (trace u8 [n_bands_total, PAD], llk i32 [n_bands_total],
-    start_e i32 [B])."""
-    dev = ev_pool.device
-    B = ev_len.shape[0]
-    ne = ev_len.long()
-    nk = rk_len.long()
-    nb = band_off[1:] - band_off[:-1]
-    NB = int(nb.max()) if B else 0
-    offs = torch.arange(PAD, device=dev)
-    n_model = level_mean.shape[0]
-    scale, shift, lp_stay, lp_step, lp_skip, lp_trim = (
-        params[:, j:j + 1] for j in range(6))
+class _Band:
+    """The band recurrence for a batch of reads: the per-read inputs and
+    one band step.  Shared by the unchunked fill below and the windowed
+    fill of ops/abea_ultra.py, as csrc/abea_band.cuh is by their kernels.
+    """
 
-    band0 = torch.full((B, PAD), NEG_INF, device=dev)
-    band0[:, START_OFF] = 0.0
-    band1 = torch.full((B, PAD), NEG_INF, device=dev)
-    band1[:, START_OFF] = lp_trim[:, 0]
-    trace = torch.zeros((B, max(NB, 2), PAD), dtype=torch.uint8, device=dev)
-    trace[:, 1, START_OFF] = FROM_U
-    llk = torch.full((B, max(NB, 2)), LL_K0, dtype=torch.int64, device=dev)
+    def __init__(self, ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
+                 level_mean, level_stdv, level_log_stdv, params, band_off):
+        dev = ev_pool.device
+        self.ev_pool, self.ev_off = ev_pool, ev_off
+        self.rk_pool, self.rk_off = rk_pool, rk_off
+        self.tables = (level_mean, level_stdv, level_log_stdv)
+        self.ne = ev_len.long()
+        self.nk = rk_len.long()
+        self.nb = band_off[1:] - band_off[:-1]
+        self.offs = torch.arange(PAD, device=dev)
+        (self.scale, self.shift, self.lp_stay, self.lp_step, self.lp_skip,
+         self.lp_trim) = (params[:, j:j + 1] for j in range(6))
+        self.ninf = torch.tensor(NEG_INF, device=dev)
 
-    prev2, prev = band0, band1
-    k2 = torch.full((B,), LL_K0, dtype=torch.int64, device=dev)  # band bi-2
-    ll_k = k2.clone()                                             # band bi-1
-    ll_e = torch.full((B,), HALF, dtype=torch.int64, device=dev)
-    best_s = torch.full((B,), NEG_INF, device=dev)
-    best_e = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    ninf = torch.tensor(NEG_INF, device=dev)
-
-    for bi in range(2, NB):
+    def step(self, bi: int, prev, prev2, ll_k, k2, ll_e, best_s, best_e):
+        """Band ``bi`` of every read from bands bi-1 (``prev``, lower-left
+        k-mer ``ll_k`` and event ``ll_e``) and bi-2 (``prev2``, ``k2``).
+        Returns (row, frm, ll_k, ll_e, best_s, best_e) of band bi; the
+        backtrace start only moves for reads with bi < n_bands."""
+        ne, nk, offs, ninf = self.ne, self.nk, self.offs, self.ninf
+        level_mean, level_stdv, level_log_stdv = self.tables
+        n_model = level_mean.shape[0]
         # Suzuki's rule from the previous band's edge cells
         ll, ur = prev[:, 0], prev[:, BW - 1]
         both_ob = torch.isneginf(ll) & torch.isneginf(ur)
         right = torch.where(both_ob, torch.full_like(both_ob, bi % 2 == 1),
                             ll < ur)
         r_i = right.long()
-        k1 = ll_k
         ll_k = ll_k + r_i
         ll_e = ll_e + (1 - r_i)
 
@@ -133,21 +126,23 @@ def abea_fill_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
         km_idx = ll_k[:, None] + offs
         valid = ((km_idx >= 0) & (km_idx < nk[:, None]) & (ev_idx >= 0)
                  & (ev_idx < ne[:, None]) & (offs < BW))
-        ev = ev_pool[ev_off[:, None]
-                     + torch.minimum(ev_idx.clamp(min=0), ne[:, None] - 1)]
-        rank = rk_pool[rk_off[:, None]
-                       + torch.minimum(km_idx.clamp(min=0), nk[:, None] - 1)]
+        ev = self.ev_pool[self.ev_off[:, None]
+                          + torch.minimum(ev_idx.clamp(min=0),
+                                          ne[:, None] - 1)]
+        rank = self.rk_pool[self.rk_off[:, None]
+                            + torch.minimum(km_idx.clamp(min=0),
+                                            nk[:, None] - 1)]
         rank = rank.long().clamp(0, n_model - 1)
-        kms = scale * level_mean[rank] + shift
+        kms = self.scale * level_mean[rank] + self.shift
         a = (ev - kms) / level_stdv[rank]
         em = (LOG_INV_SQRT_2PI - level_log_stdv[rank]) + (-0.5 * a) * a
 
         up = _shift(prev, r_i)               # (k, e-1) in band bi-1
         left = _shift(prev, r_i - 1)         # (k-1, e) in band bi-1
         diag = _shift(prev2, ll_k - k2 - 1)  # (k-1, e-1) in band bi-2
-        score_d = (diag + lp_step) + em
-        score_u = (up + lp_stay) + em
-        score_l = left + lp_skip
+        score_d = (diag + self.lp_step) + em
+        score_u = (up + self.lp_stay) + em
+        score_l = left + self.lp_skip
         max_s = torch.maximum(score_d, score_u)
         frm = torch.where(max_s == score_u, FROM_U, FROM_D)
         max_s = torch.maximum(max_s, score_l)
@@ -161,26 +156,59 @@ def abea_fill_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
         trim_ok = ((trim_off >= 0) & (trim_off < BW) & (trim_ev >= 0)
                    & (trim_ev < ne))
         is_trim = (offs == trim_off[:, None]) & trim_ok[:, None]
-        row = torch.where(is_trim, lp_trim * (trim_ev + 1).float()[:, None],
-                          row)
+        row = torch.where(is_trim,
+                          self.lp_trim * (trim_ev + 1).float()[:, None], row)
         frm = torch.where(is_trim, FROM_U, frm)
 
         # backtrace start: first best of last-k-mer cell + trim tail
         off_lc = (nk - 1) - ll_k
         e_lc = ll_e - off_lc
         lcv = row.gather(1, off_lc.clamp(0, PAD - 1)[:, None])[:, 0]
-        cand = lcv + (ne - e_lc).float() * lp_trim[:, 0]
+        cand = lcv + (ne - e_lc).float() * self.lp_trim[:, 0]
         okc = ((off_lc >= 0) & (off_lc < BW) & (e_lc >= 0) & (e_lc < ne)
-               & (bi < nb))
+               & (bi < self.nb))
         cand = torch.where(okc, cand, ninf)
         upd = cand > best_s
         best_s = torch.where(upd, cand, best_s)
         best_e = torch.where(upd, e_lc, best_e)
+        return row, frm, ll_k, ll_e, best_s, best_e
 
+
+def abea_fill_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
+                    level_mean, level_stdv, level_log_stdv, params,
+                    band_off):
+    """Band fill for every read, batched: a Python loop over bands.
+    Returns (trace u8 [n_bands_total, PAD], llk i32 [n_bands_total],
+    start_e i32 [B])."""
+    dev = ev_pool.device
+    B = ev_len.shape[0]
+    band = _Band(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
+                 level_mean, level_stdv, level_log_stdv, params, band_off)
+    nb = band.nb
+    NB = int(nb.max()) if B else 0
+
+    band0 = torch.full((B, PAD), NEG_INF, device=dev)
+    band0[:, START_OFF] = 0.0
+    band1 = torch.full((B, PAD), NEG_INF, device=dev)
+    band1[:, START_OFF] = params[:, 5]
+    trace = torch.zeros((B, max(NB, 2), PAD), dtype=torch.uint8, device=dev)
+    trace[:, 1, START_OFF] = FROM_U
+    llk = torch.full((B, max(NB, 2)), LL_K0, dtype=torch.int64, device=dev)
+
+    prev2, prev = band0, band1
+    k2 = torch.full((B,), LL_K0, dtype=torch.int64, device=dev)  # band bi-2
+    ll_k = k2.clone()                                             # band bi-1
+    ll_e = torch.full((B,), HALF, dtype=torch.int64, device=dev)
+    best_s = torch.full((B,), NEG_INF, device=dev)
+    best_e = torch.full((B,), -1, dtype=torch.int64, device=dev)
+
+    for bi in range(2, NB):
+        row, frm, ll_k_new, ll_e, best_s, best_e = band.step(
+            bi, prev, prev2, ll_k, k2, ll_e, best_s, best_e)
         trace[:, bi] = frm.to(torch.uint8)
-        llk[:, bi] = ll_k
+        llk[:, bi] = ll_k_new
         prev2, prev = prev, row
-        k2 = k1
+        k2, ll_k = ll_k, ll_k_new
 
     keep = torch.arange(trace.shape[1], device=dev)[None, :] < nb[:, None]
     return (trace[keep], llk[keep].to(torch.int32),

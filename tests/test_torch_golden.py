@@ -134,7 +134,11 @@ def test_bam_ordered_path(golden_dir, capsys):
     _tolerant_compare(out.getvalue(), _truth(), {4, 5, 6})
 
 
-def test_ultra_long_reads_are_not_ported():
+def test_reads_past_tpu_limits_are_routed():
+    """Reads past the JAX runner's TPU limits (65,536 k-mers or 131,072
+    events) used to raise here.  They now take the port's routing rule:
+    the unchunked path while their trace fits a wave's share of the
+    budget, the windowed path of the ultra-long reads beyond it."""
     from types import SimpleNamespace
 
     from f5c_tpu.models import builtin_model
@@ -142,9 +146,10 @@ def test_ultra_long_reads_are_not_ported():
 
     pipe = Pipeline.bare(Options(), builtin_model("dna_r9_nucleotide"))
     ok = SimpleNamespace(qname="r", seq="A" * 2000, n_events=4000)
-    pipe._check_not_ultra(ok)
+    assert not pipe._takes_window_path(ok)
     for n_bases, n_events in ((70_000, 1000), (1000, 140_000)):
         long = SimpleNamespace(qname="r", seq="A" * n_bases,
                                n_events=n_events)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipe._check_not_ultra(long)
+        assert not pipe._takes_window_path(long)
+    ultra = SimpleNamespace(qname="r", seq="A" * 100_000, n_events=168_000)
+    assert pipe._takes_window_path(ultra)

@@ -4,7 +4,8 @@ card (csrc/abea.cu, csrc/hmm.cu; built with nvcc at first use).
 ABEA must be bit-identical (trace, band placement, start event, walk
 length and bytes); the HMM forward scores agree to ops/hmm.py's stated
 f32 tolerance.  Without a CUDA device every test here skips; run them on
-the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
+the card with ``python -m pytest tests/test_torch_kernels_cuda.py``; the
+windowed ABEA kernels of csrc/abea_ultra.cu are held to the same bits.
 """
 
 import numpy as np
@@ -93,3 +94,59 @@ def test_hmm_kernel_wide_windows(cuda, n_kmers):
     torch.cuda.synchronize()
     assert torch.isfinite(want).all()
     torch.testing.assert_close(got, want, rtol=hmm.RTOL, atol=hmm.ATOL)
+
+
+def _bits(t):
+    """State records hold ints as f32 bits: compare them as bits."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("win", [97, 1000, 4097])
+def test_abea_window_kernels_match_plain(cuda, win):
+    """The windowed fill (forward over the whole reads, then one window
+    with the trace) and the window walk, against their plain versions;
+    the whole windowed path against the unchunked kernels."""
+    from f5c_tpu_torch.ops import abea_ultra, abea_ultra_cuda
+
+    model = builtin_model("dna_r9_nucleotide")
+    rng = np.random.default_rng(14)
+    n_kmers = [20, 128, 129, 700, 1500, 45, 3000]
+    seqs, events = synthetic.abea_reads(rng, n_kmers, model, unrelated=(5,))
+    x = _on(synthetic.abea_inputs(seqs, events, model), cuda)
+    args = [x[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool",
+                           "rk_off", "rk_len", "level_mean", "level_stdv",
+                           "level_log_stdv", "params", "band_off")]
+    nb_max = int(np.diff(x["band_off"].cpu().numpy()).max())
+    nw = abea_ultra.n_windows(nb_max, win)
+    s0 = abea_ultra.initial_state(x["params"])
+    got = abea_ultra_cuda.abea_fill_window(*args, s0, 2, win, nw, False)
+    want = abea_ultra.fill_window_plain(*args, s0, 2, win, nw, False)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    w = nw - 1
+    state = want[0][:, w - 1].contiguous() if w else s0
+    base = 2 + w * win
+    got = abea_ultra_cuda.abea_fill_window(*args, state, base, win, 1, True)
+    want = abea_ultra.fill_window_plain(*args, state, base, win, 1, True)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert torch.equal(_bits(g), _bits(p))
+    trace, llk = want[1], want[2]
+    _, start_e, _ = abea_cuda.abea_align(*args, x["byte_off"], x["n_bands"],
+                                         x["n_bytes"])
+    kst = abea_ultra.walk_start(start_e, x["rk_len"])
+    flat = torch.zeros(x["n_bytes"], dtype=torch.uint8, device=cuda)
+    got = abea_ultra_cuda.abea_walk_window(trace, llk, base, kst, flat,
+                                           x["byte_off"])
+    want = abea_ultra.walk_window_plain(trace, llk, base, kst, flat,
+                                        x["byte_off"])
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    got = abea_ultra_cuda.abea_align_windowed(
+        *args, x["byte_off"], x["n_bytes"], nb_max, win)
+    ref = abea_cuda.abea_align(*args, x["byte_off"], x["n_bands"],
+                               x["n_bytes"])
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
