@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (f5c_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile   # phase 6's runs under torch.profiler
+    python3 chip_smoke.py --profile   # golden x85 and phase 6's runs profiled
 
 Phases (each prints one line; any failure raises and exits nonzero):
 
@@ -14,7 +14,9 @@ Phases (each prints one line; any failure raises and exits nonzero):
    golden reads' own launches (also with every read forced through the
    windowed ABEA) and on synthetic batches (mixed read lengths, HMM
    windows wider than 128 k-mers, one read of ~5,000 bands in windows of
-   1,000);
+   1,000, and one long read -- a chain of ~420 tiles of the fill and the
+   walk -- among 40 short ones, held to the plain versions at two of its
+   windows);
 4. golden gates: ``f5c_tpu_torch.cli.main([...])`` on tests/data/golden,
    against the vendored truth under f5c's tolerance |x - t| <= 0.1|t| +
    0.02: call-methylation (6 reads, 0 deviant rows against meth.exp, every
@@ -35,13 +37,19 @@ Phases (each prints one line; any failure raises and exits nonzero):
    windows of the windowed run (the last one, from band ~786k, and a full
    one of 65,536 bands x 4 reads); the unchunked kernels timed.
 
-It prints a JSON line of the kernels, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-outside a checkout of the repository, it fails before printing results.
+It prints a JSON line of the kernels (launches on the main path, max
+abs error against the plain version, ms, plain ms, and the roofline bound
+of the timed launch: bytes each input read once and each output written
+once over 3.35 TB/s, or f32 operations over 67 TFLOP/s, whichever is
+larger), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or outside a checkout of the
+repository, it fails before printing results; it fails too if the JAX
+package or jax was imported.
 
-``--profile`` runs only phases 1-2 and phase 6's four configurations,
-each warm three times and once under torch.profiler: walls, the card's
-busy time and share of the wall, device ms and launches per kernel.
+``--profile`` runs only phases 1-2, then golden x85 (call-methylation)
+and phase 6's four configurations, each warm three times and once under
+torch.profiler: walls, the card's busy time and share of the wall,
+device ms and launches per kernel.
 """
 
 from __future__ import annotations
@@ -62,6 +70,13 @@ EA_FLOAT_COLS = (6, 7, 8, 10, 11, 12)    # tests/test_golden_e2e.py:104-125
 SUMMARY_FLOAT_COLS = (9, 10, 11, 12, 13)
 FORCE_BUDGET, FORCE_WIN = 1_000_000, 300  # every golden read windowed
 SYNTH_WIN = 1000
+MIX_LONG, MIX_WIN = 20_000, 4096   # the long read's k-mers; windows
+# the roofline of one H100 SXM (NVIDIA's datasheet): HBM bytes/s
+# and f32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+ABEA_CELL_OPS = 13   # f32 ops of a band cell: emission 5, scores 6, max 2
+HMM_CELL_OPS = 55    # f32 ops (exp/log as one) of an HMM (k-mer, event) cell
 KERNELS = {
     "abea_fill": ("f5c_tpu_torch/csrc/abea.cu", "f5c_tpu/ops/abea_ring.py:69"),
     "abea_walk": ("f5c_tpu_torch/csrc/abea.cu",
@@ -404,17 +419,15 @@ def time_unchunked_kernels(torch, calls) -> dict:
         walk_unchunked=time_ms(torch, lambda: abea_cuda.abea_walk(*walk), 1))
 
 
-def hold_ultra_windows(torch, calls, win: int):
-    """The window kernels of the windowed ultra run held to their plain
-    versions on the same card tensors, bit for bit, at two windows of that
-    run: the last one (it resumes from the forward fill's checkpoint near
-    band 786k; only the longest read is left) and the last one in which
-    every read runs all ``win`` bands.  The plain re-fill's end state must
-    also equal the forward fill's checkpoint there, which holds the
-    forward launch (no trace, the whole reads) to the plain version at
-    those windows, and the walk's recorded input must be the plain
-    re-fill's trace.  Returns ({name: max_abs_err}, {name: (ms, plain_ms)}
-    at the full window, fields to print)."""
+def hold_windows(torch, calls, win: int, picks: dict):
+    """The window kernels of a windowed run held to their plain versions
+    on the same card tensors, bit for bit, at the windows ``picks``
+    ({tag: window index}).  The plain re-fill's end state must also equal
+    the forward fill's checkpoint there, which holds the forward launch
+    (no trace, the whole reads) to the plain version at those windows,
+    and the walk's recorded input must be the plain re-fill's trace.
+    Returns ({name: max_abs_err}, {tag: {name: (ms, plain_ms, bound_ms,
+    bound_by)}}, fields to print, {tag: (base, plain re-fill)})."""
     import numpy as np
 
     from f5c_tpu_torch.ops import abea_ultra, abea_ultra_cuda
@@ -426,47 +439,125 @@ def hold_ultra_windows(torch, calls, win: int):
     refill = {a[12]: a for a, _ in calls["abea_fill_window"][1:]}
     walks = {a[2]: a for a, _ in calls["abea_walk_window"]}
     nb = np.diff(fwd[10].cpu().numpy())
-    full = (int(nb.min()) - 2) // win - 1
-    if full < 0 or len(refill) != n_win or len(walks) != n_win:
-        raise AssertionError("the ultra run's window launches are not "
-                             "those of the main path")
+    if (min(picks.values()) < 0 or len(refill) != n_win
+            or len(walks) != n_win):
+        raise AssertionError("the window launches are not those of the "
+                             "main path")
     fwd_ms = time_ms(torch, lambda: abea_ultra_cuda.abea_fill_window(*fwd),
                      1)
     ckpt = abea_ultra_cuda.abea_fill_window(*fwd)[0]
     err = {"abea_fill_window": 0, "abea_walk_window": 0}
-    timings, info = {}, dict(fill_window_forward=fwd_ms, n_windows=n_win)
-    for tag, w in (("last", n_win - 1), ("full", full)):
+    timings, plain_fills = {}, {}
+    info = dict(fill_window_forward=fwd_ms, n_windows=n_win)
+    for tag, w in picks.items():
         base = 2 + w * win
         fa, wa = refill[base], walks[base]
         want_f, plain_f = run_once(
             torch, lambda: abea_ultra.fill_window_plain(*fa))
         want_w, plain_w = run_once(
             torch, lambda: abea_ultra.walk_window_plain(*wa))
+        got_f = abea_ultra_cuda.abea_fill_window(*fa)
+        got_w = abea_ultra_cuda.abea_walk_window(*wa)
         err["abea_fill_window"] = max(
-            err["abea_fill_window"],
-            _int_err(abea_ultra_cuda.abea_fill_window(*fa), want_f),
+            err["abea_fill_window"], _int_err(got_f, want_f),
             _int_err((ckpt[:, w:w + 1].contiguous(),), want_f[:1]),
             _int_err(wa[:2], want_f[1:]))
-        err["abea_walk_window"] = max(
-            err["abea_walk_window"],
-            _int_err(abea_ultra_cuda.abea_walk_window(*wa), want_w))
+        err["abea_walk_window"] = max(err["abea_walk_window"],
+                                      _int_err(got_w, want_w))
         ms_f = time_ms(torch, lambda: abea_ultra_cuda.abea_fill_window(*fa),
                        3)
         ms_w = time_ms(torch, lambda: abea_ultra_cuda.abea_walk_window(*wa),
                        3)
+        timings[tag] = {
+            "abea_fill_window": (ms_f, plain_f, *bound_of(
+                "abea_fill_window", fa, {}, got_f)),
+            "abea_walk_window": (ms_w, plain_w, *bound_of(
+                "abea_walk_window", wa, {}, got_w))}
         info[f"window_{tag}"] = dict(
             index=w, base=base, bands=int(np.clip(nb - base, 0, win).max()),
             reads=int((nb > base).sum()), fill_ms=round(ms_f, 3),
             fill_plain_ms=round(plain_f, 1), walk_ms=round(ms_w, 3),
-            walk_plain_ms=round(plain_w, 1))
-        if tag == "full":
-            timings = {"abea_fill_window": (ms_f, plain_f),
-                       "abea_walk_window": (ms_w, plain_w)}
+            walk_plain_ms=round(plain_w, 1),
+            walk_steps=int((got_w[0][:, 2] - wa[3][:, 2]).sum()))
+        plain_fills[tag] = (base, want_f)
     for name, e in err.items():
         if e != 0:
             raise AssertionError(f"{name}: kernel differs from plain at the "
-                                 f"ultra run's windows (max abs err {e})")
-    return err, timings, info
+                                 f"run's windows (max abs err {e})")
+    return err, timings, info, plain_fills
+
+
+def mixed_long_short(torch, dev):
+    """One long read (20,000 k-mers: a chain of ~54,000 bands, ~420 tiles
+    of the fill and the walk) among 40 short ones, through the unchunked
+    kernels (fill, walk) and the windowed ones (windows of MIX_WIN).  The
+    two paths must agree bit for bit; the window kernels are held to
+    their plain versions at the middle and the last window of the long
+    read, and the unchunked fill's trace rows there to the plain
+    re-fill's.  Returns ({name: max_abs_err}, fields to print)."""
+    import numpy as np
+
+    from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.models import builtin_model
+    from f5c_tpu_torch.ops import abea, abea_cuda, abea_ultra_cuda
+
+    rng = np.random.default_rng(2028)
+    nuc = builtin_model("dna_r9_nucleotide")
+    n_kmers = [MIX_LONG] + [int(n) for n in rng.integers(50, 2500, 40)]
+    seqs, events = synthetic.abea_reads(rng, n_kmers, nuc, unrelated=(7,))
+    x = synthetic.abea_inputs(seqs, events, nuc)
+    t = {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
+         else v for k, v in x.items()}
+    args = tuple(t[k] for k in (
+        "ev_pool", "ev_off", "ev_len", "rk_pool", "rk_off", "rk_len",
+        "level_mean", "level_stdv", "level_log_stdv", "params",
+        "band_off"))
+    nb = np.diff(x["band_off"])
+    chain = int(nb.max())
+    if chain // abea.FILL_TILE < 50 or chain // abea.WALK_TILE < 50:
+        raise AssertionError("the long read spans < 50 tiles")
+    fill = abea_cuda.abea_fill(*args, x["n_bands"])
+    walk_args = (fill[0], fill[1], t["band_off"], fill[2], t["rk_len"],
+                 t["byte_off"], x["n_bytes"])
+    walk = abea_cuda.abea_walk(*walk_args)
+    fill_ms = time_ms(torch, lambda: abea_cuda.abea_fill(
+        *args, x["n_bands"]), 5)
+    walk_ms = time_ms(torch, lambda: abea_cuda.abea_walk(*walk_args), 5)
+    spy = Spy([abea_ultra_cuda])
+    try:
+        got = abea_ultra_cuda.abea_align_windowed(
+            *args, t["byte_off"], x["n_bytes"], chain, MIX_WIN)
+    finally:
+        spy.close()
+    if _int_err(got, (walk[0], fill[2], walk[1])) != 0:
+        raise AssertionError("mixed batch: the windowed ABEA differs from "
+                             "the unchunked kernels")
+    nw = len(spy.calls["abea_walk_window"])
+    err, _, info, plain_fills = hold_windows(
+        torch, spy.calls, MIX_WIN, {"mid": nw // 2, "last": nw - 1})
+    e_fill = 0
+    for base, (_, p_tr, p_llk) in plain_fills.values():
+        for i in np.nonzero(nb > base)[0]:
+            rows = int(min(nb[i] - base, MIX_WIN))
+            b = int(x["band_off"][i]) + base
+            e_fill = max(e_fill, _int_err(
+                (fill[0][b:b + rows], fill[1][b:b + rows]),
+                (p_tr[i, :rows], p_llk[i, :rows])))
+    if e_fill:
+        raise AssertionError("mixed batch: the fill differs from plain at "
+                             f"the long read's windows ({e_fill})")
+    err.update(abea_fill=e_fill, abea_walk=0)
+    f_bound = bound_of("abea_fill", args + (x["n_bands"],), {}, fill)
+    w_bound = bound_of("abea_walk", walk_args, {}, walk)
+    info.update(reads=len(seqs), chain_bands=chain,
+                walk_steps=int(walk[1].max()), fill_ms=round(fill_ms, 3),
+                fill_bound_ms=round(f_bound[0], 4),
+                fill_ns_per_band=round(1e6 * fill_ms / chain, 1),
+                walk_ms=round(walk_ms, 3),
+                walk_bound_ms=round(w_bound[0], 4),
+                walk_ns_per_step=round(1e6 * walk_ms / int(walk[1].max()),
+                                       1))
+    return err, info
 
 
 def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
@@ -496,8 +587,13 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
             finally:
                 spy.close()
             if mode == "windowed":
-                err, timings, info = hold_ultra_windows(torch, spy.calls,
-                                                        win)
+                nb = (spy.calls["abea_fill_window"][0][0][10].diff()
+                      .min().item())
+                err, timings, info, _ = hold_windows(
+                    torch, spy.calls, win,
+                    {"last": len(spy.calls["abea_walk_window"]) - 1,
+                     "full": (nb - 2) // win - 1})
+                timings = timings["full"]
                 kernel_ms.update(info)
             else:
                 kernel_ms.update(time_unchunked_kernels(torch, spy.calls))
@@ -588,6 +684,48 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None and hasattr(t, "element_size"))
+
+
+def roofline(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations"): the least time of the card for
+    this work."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def bound_of(name: str, args, kw, out):
+    """The roofline bound of one kernel call from its inputs and outputs:
+    every input read once and every output written once (for the walks,
+    the trace bytes and llk words of the steps taken), and the f32
+    operations of the cells computed."""
+    if name == "abea_fill":
+        cells = args[11] * 100
+        return roofline(_nbytes(*args[:11], *out), cells * ABEA_CELL_OPS)
+    if name == "abea_walk":
+        steps = int(out[1].long().sum())
+        return roofline(5 * steps + _nbytes(*args[2:6], *out), 0)
+    if name == "hmm_forward":
+        cells = int((args[1].long() * args[5].long()).sum())
+        return roofline(_nbytes(*args, out), cells * HMM_CELL_OPS)
+    if name == "abea_fill_window":
+        base, win, n_win = args[12], args[13], args[14]
+        nb = (args[10][1:] - args[10][:-1]).long()
+        bands = int((nb - base).clamp(0, n_win * win).sum())
+        # each band takes one new k-mer rank or event (4 bytes) beyond
+        # the first tile's reach of BW k-mers and events per read
+        inputs = 4 * bands + 8 * 100 * int((nb > base).sum())
+        return roofline(inputs + _nbytes(args[11], *out),
+                        bands * 100 * ABEA_CELL_OPS)
+    if name == "abea_walk_window":
+        steps = int((out[0][:, 2] - args[3][:, 2]).long().sum())
+        return roofline(5 * steps + -(-steps // 4) + 2 * _nbytes(args[3]),
+                        0)
+    raise KeyError(name)
+
+
 def device_busy(torch, prof, top: int = 6):
     """(busy ms: the union of the card's spans, {kernel: [ms, launches]}
     for the ``top`` kernels by time and the rest as "other") of a
@@ -616,14 +754,34 @@ def device_busy(torch, prof, top: int = 6):
     return busy / 1e3, out
 
 
-def profile_ultra(torch, card, runner, datasets, reps: int = 3) -> None:
-    """``--profile``: ultra x4 through both entry points, windowed and
-    unchunked: the walls of ``reps`` warm runs, then one run under
-    torch.profiler with the card's busy time, its share of that run's
-    wall, and device ms and launches per kernel."""
+def profile_runs(torch, card, runner, datasets, reps: int = 3) -> None:
+    """``--profile``: golden x85 through call-methylation, and ultra x4
+    through both entry points, windowed and unchunked: the walls of
+    ``reps`` warm runs, then one run under torch.profiler with the card's
+    busy time, its share of that run's wall, and device ms and launches
+    per kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    def measure(data, out, summary, **fields):
+        run_cli(data, out, summary)
+        walls = [run_cli(data, out, summary)[0] for _ in range(reps)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run_cli(data, out, summary)[0]
+        busy, per = device_busy(torch, prof)
+        say("profile", **fields,
+            warm_walls_s=",".join(f"{w:.3f}" for w in walls),
+            profiled_wall_s=f"{wall:.3f}", busy_ms=f"{busy:.1f}",
+            busy_share=f"{100 * busy / (1e3 * wall):.1f}%",
+            kernels=json.dumps(per, separators=(",", ":")),
+            card=card.replace(" ", "_"))
+
     with tempfile.TemporaryDirectory(prefix="chip_profile_") as tmp:
+        source = datasets.dataset(GOLDEN, slow5=datasets.GOLDEN_SIGNALS_ZLIB)
+        scale = datasets.replicate_dataset(source, os.path.join(tmp, "x85"),
+                                           COPIES)
+        measure(scale, os.path.join(tmp, "x85.tsv"), None, mode="golden_x85",
+                entry="meth")
         data = datasets.ultra_dataset(os.path.join(tmp, "ultra"), seed=2026)
         budget = runner.Pipeline.TRACE_BYTES_BUDGET
         for mode in ("windowed", "unchunked"):
@@ -633,20 +791,7 @@ def profile_ultra(torch, card, runner, datasets, reps: int = 3) -> None:
                 for cmd in ("meth", "eventalign"):
                     out = os.path.join(tmp, f"{mode}_{cmd}.tsv")
                     summary = out + ".summary" if cmd == "eventalign" else None
-                    run_cli(data, out, summary)
-                    walls = [run_cli(data, out, summary)[0]
-                             for _ in range(reps)]
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        wall = run_cli(data, out, summary)[0]
-                    busy, per = device_busy(torch, prof)
-                    say("profile", mode=mode, entry=cmd,
-                        warm_walls_s=",".join(f"{w:.3f}" for w in walls),
-                        profiled_wall_s=f"{wall:.3f}",
-                        busy_ms=f"{busy:.1f}",
-                        busy_share=f"{100 * busy / (1e3 * wall):.1f}%",
-                        kernels=json.dumps(per, separators=(",", ":")),
-                        card=card.replace(" ", "_"))
+                    measure(data, out, summary, mode=mode, entry=cmd)
             finally:
                 runner.Pipeline.TRACE_BYTES_BUDGET = budget
 
@@ -684,7 +829,7 @@ def main(argv: list[str]) -> int:
     say("build", seconds=f"{time.time() - t0:.2f}",
         cached=_build.build_info["cached"], ptxas="; ".join(regs))
     if argv == ["--profile"]:
-        profile_ultra(torch, card, runner, datasets)
+        profile_runs(torch, card, runner, datasets)
         print(card, flush=True)
         return 0
 
@@ -749,6 +894,12 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize()
         say("window_vs_plain", golden=err_golden_win,
             synthetic=err_synth_win, synthetic_shape=synth_shape)
+        err_mixed, mixed_info = mixed_long_short(torch, dev)
+        torch.cuda.synchronize()
+        say("long_and_short", errors=err_mixed, win=MIX_WIN,
+            card=card.replace(" ", "_"),
+            **{k: (f"{v:.3f}" if isinstance(v, float) else v)
+               for k, v in mixed_info.items()})
         say("golden_windowed", processed=processed, deviant_rows=bad_win,
             launches=counts_win, win=FORCE_WIN, wall_s=f"{wall:.3f}")
         if (processed != 6 or bad_win != 0 or counts_win["abea_fill"] != 0
@@ -826,13 +977,24 @@ def main(argv: list[str]) -> int:
             "hmm_forward": (lambda: hmm_cuda.hmm_forward(*hmm_a, **hmm_kw),
                             lambda: hmm.hmm_forward_plain(*hmm_a, **hmm_kw)),
         }
+        # the serial chains of the ABEA launch: the longest read's bands
+        # (fill) and the longest walk's steps
+        chain = int((fill_a[10][1:] - fill_a[10][:-1]).max())
+        steps = int(abea_cuda.abea_walk(*walk_a, **walk_kw)[1].max())
         shapes = dict(reads=int(fill_a[2].shape[0]), bands=fill_a[11],
+                      chain_bands=chain, walk_steps=steps,
                       windows=int(hmm_a[0].shape[0]),
                       window_width=int(hmm_a[0].shape[1]))
-        timings = {name: (time_ms(torch, kern, 20), time_ms(torch, plain, 2))
-                   for name, (kern, plain) in timed.items()}
+        timings = {name: (time_ms(torch, kern, 20), time_ms(torch, plain, 2),
+                          *bound_of(name, args, kw, kern()))
+                   for name, (kern, plain), (args, kw) in zip(
+                       timed, timed.values(),
+                       ((fill_a, fill_kw), (walk_a, walk_kw),
+                        (hmm_a, hmm_kw)))}
         say("timing", shapes=shapes, card=card.replace(" ", "_"),
-            best_reads_per_s=f"{n_reads / min(walls):.2f}")
+            best_reads_per_s=f"{n_reads / min(walls):.2f}",
+            fill_ns_per_band=f"{1e6 * timings['abea_fill'][0] / chain:.1f}",
+            walk_ns_per_step=f"{1e6 * timings['abea_walk'][0] / steps:.1f}")
 
         # 6. ultra-long reads through both entry points, windowed (the
         # defaults) and unchunked (budget raised); the main path of the
@@ -846,18 +1008,23 @@ def main(argv: list[str]) -> int:
 
         errs = {name: max(e.get(name, 0) for e in (
             err_golden, err_synth, err_scale, err_golden_win,
-            err_synth_win, err_ultra)) for name in KERNELS}
+            err_synth_win, err_mixed, err_ultra)) for name in KERNELS}
         kernels = []
-        for name, (ms, plain_ms) in timings.items():
+        for name, (ms, plain_ms, bound_ms, bound_by) in timings.items():
             launches = (ultra_counts if name.endswith("_window")
                         else counts)[name]
+            # no PyTorch call computes the ABEA fill, its walk or the HMM
+            # forward pass: library_ms is null
             kernels.append(dict(
                 name=name, route="cuda", source=KERNELS[name][0],
                 replaces=KERNELS[name][1], launches=launches,
-                max_abs_err=errs[name], ms=ms, plain_ms=plain_ms))
+                max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "f5c_tpu"))
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded[:5]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ a CUDA card.
         -r reads.fasta --slow5 signals.blow5 [-o out.tsv] \\
         [--summary summary.tsv] [--sam | --paf | --m6anet] [--device ...]
 
-The options are the JAX package's (``f5c_tpu.cli._add_common_meth_args``
-and its eventalign options); ``--device`` selects the torch device.  The
+The options are the JAX package's (``f5c_tpu/cli.py``
+``_add_common_meth_args`` and its eventalign options, copied here);
+``--device`` selects the torch device.  The
 default is ``cuda`` and a run with no card is an error: ``--device cpu``
 is the explicit request for the kernels' plain PyTorch versions on the
 host.  The other subcommands are not ported yet (ROADMAP.md).
@@ -20,14 +21,128 @@ from __future__ import annotations
 import argparse
 import sys
 
-from f5c_tpu.cli import _add_common_meth_args, _out_fh
-
 __version__ = "0.1.0"
 
 
+def _add_common_meth_args(p):
+    p.add_argument("-b", "--bam", required=True, help="sorted BAM file")
+    p.add_argument("-g", "--genome", required=True, help="reference genome FASTA")
+    p.add_argument("-r", "--reads", required=True, help="reads FASTA/FASTQ")
+    p.add_argument("-t", "--threads", type=int, default=None,
+                   help="host worker processes")
+    p.add_argument("-K", "--batchsize", type=int, default=None,
+                   help="max reads per batch [512]")
+    p.add_argument("-B", "--max-bases", type=_kmg, default=None,
+                   help="max bases per batch (K/M/G suffixes ok) [5M]")
+    p.add_argument("-x", "--profile", default=None,
+                   help="parameter preset (laptop/desktop/hpc/tpu/... or "
+                        "a file of 7 numbers), applied before other flags")
+    p.add_argument("-w", "--window", default=None,
+                   help="genomic region chr:start-end or a .bed file")
+    p.add_argument("--ultra-thresh", type=_kmg, default=100_000,
+                   help="threshold for ultra-long reads")
+    p.add_argument("--skip-ultra", default=None, metavar="FILE",
+                   help="skip ultra-long reads, writing them to FILE (BAM) "
+                        "for a second pass")
+    p.add_argument("--min-mapq", type=int, default=20)
+    p.add_argument("--slow5", help="SLOW5/BLOW5 signal file (instead of "
+                   "FAST5 via the readdb index)")
+    p.add_argument("--secondary", choices=["yes", "no"], default="no")
+    p.add_argument("--rna", action="store_true", help="direct RNA data")
+    p.add_argument("--pore", choices=["r9", "r10", "rna004"], default="r9")
+    p.add_argument("--kmer-model", help="custom nucleotide model file")
+    p.add_argument("--meth-model", help="custom methylation model file")
+    p.add_argument("--min-recalib-events", type=int, default=200,
+                   help="min events to attempt recalibration")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="torch device: 'cuda' runs the CUDA kernels (an "
+                        "error without a card); 'cpu' runs their plain "
+                        "PyTorch versions")
+    p.add_argument("--events-engine", choices=["auto", "host", "device"],
+                   default="auto",
+                   help="event-detection engine: host C++ or the batched "
+                        "on-device detector; auto picks by the measured "
+                        "dispatch latency (BENCH.md)")
+    p.add_argument("-o", "--output", default="-", help="output file")
+    p.add_argument("--shard", default=None, metavar="I/N",
+                   help="process only reads with read_idx %% N == I "
+                        "(multi-host data parallelism; merge outputs "
+                        "with cat / freq-merge)")
+    p.add_argument("--dist", action="store_true",
+                   help="multi-process mode via jax.distributed: each "
+                        "process takes its read shard, writes "
+                        "<output>.partN, and process 0 merges to the "
+                        "exact single-process output (requires -o FILE)")
+    p.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
+                   help="coordination service address for manual --dist "
+                        "launches (auto-detected on TPU pods/SLURM)")
+    p.add_argument("--dist-rank", type=int, default=None,
+                   help="this process's rank for manual --dist launches")
+    p.add_argument("--dist-nprocs", type=int, default=None,
+                   help="total process count for manual --dist launches")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="write a JAX profiler trace of the run to DIR "
+                        "(view with TensorBoard/XProf)")
+    p.add_argument("--print-events", action="store_true",
+                   help="dump the event table (debug oracle)")
+    p.add_argument("--print-banded-aln", action="store_true",
+                   help="dump ABEA aligned pairs (debug oracle)")
+    p.add_argument("--print-raw", action="store_true",
+                   help="print the raw ADC signal of each read at load "
+                        "(debug; forces single-process BAM-ordered loads)")
+    p.add_argument("--skip-unreadable", choices=["yes", "no"],
+                   default="yes",
+                   help="skip unreadable signal records with a counter "
+                        "(yes) or abort (no)")
+    p.add_argument("--write-dump", default=None, metavar="FILE",
+                   help="cache raw signals to FILE while loading "
+                        "(reference binary dump format)")
+    p.add_argument("--read-dump", default=None, metavar="FILE",
+                   help="load raw signals from a --write-dump cache "
+                        "instead of FAST5/SLOW5 (same BAM + filters)")
+    p.add_argument("--debug-break", type=int, default=-1, metavar="N",
+                   help="stop after processing N batches (debug)")
+    p.add_argument("--profile-cpu", choices=["yes", "no"], default="no",
+                   help="print the per-component stage breakdown at exit "
+                        "(stage timing is always on; this adds "
+                        "host/transfer/dispatch detail)")
+    p.add_argument("--print-scaling", action="store_true",
+                   help="dump calibrated scalings (debug oracle)")
+    p.add_argument("--verbose", type=int, default=0)
+    _add_cuda_compat_args(p)
+
+
+def _add_cuda_compat_args(p, full=True):
+    """Accept the reference's CUDA tuning knobs (meth_main.c:76-84) so
+    f5c command lines are drop-in; they have no effect yet, and main()
+    warns when one is given."""
+    g = p.add_argument_group("CUDA compatibility (accepted, no effect)")
+    g.add_argument("--disable-cuda", choices=["yes", "no"], default=None,
+                   help="no effect (use --device cpu for the host)")
+    g.add_argument("--cuda-dev-id", default=None, help=argparse.SUPPRESS)
+    g.add_argument("--cuda-mem-frac", default=None, help=argparse.SUPPRESS)
+    if full:
+        g.add_argument("--cuda-block-size", default=None,
+                       help=argparse.SUPPRESS)
+        g.add_argument("--cuda-max-lf", default=None, help=argparse.SUPPRESS)
+        g.add_argument("--cuda-avg-epk", default=None, help=argparse.SUPPRESS)
+        g.add_argument("--cuda-max-epk", default=None, help=argparse.SUPPRESS)
+
+
+def _kmg(s: str) -> int:
+    mult = {"k": 10**3, "m": 10**6, "g": 10**9}
+    if s and s[-1].lower() in mult:
+        return int(float(s[:-1]) * mult[s[-1].lower()])
+    return int(s)
+
+
+def _out_fh(spec):
+    return sys.stdout if spec in ("-", None) else open(spec, "w")
+
+
 def _make_pipeline(args, device):
-    """Options as ``f5c_tpu.cli._make_pipeline`` builds them
-    (cli.py:144-193), with the port's Pipeline."""
+    """Options as the JAX package's ``_make_pipeline`` builds them
+    (f5c_tpu/cli.py:144-193), with the port's Pipeline."""
     from .pipeline.runner import Options, Pipeline
 
     opt = Options(
@@ -45,7 +160,7 @@ def _make_pipeline(args, device):
         events_engine="host",
     )
     if args.profile:
-        from f5c_tpu.profiles import apply_profile
+        from .profiles import apply_profile
 
         apply_profile(opt, args.profile)
     # explicit flags override the profile (profiles.c: -x applied first)
@@ -73,13 +188,6 @@ def _make_pipeline(args, device):
     return Pipeline(args.bam, args.genome, args.reads, opt, device)
 
 
-def _add_device_arg(p) -> None:
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="torch device: 'cuda' runs the CUDA kernels (an "
-                        "error without a card); 'cpu' runs their plain "
-                        "PyTorch versions")
-
-
 def _add_eventalign_args(p) -> None:
     """The JAX CLI's eventalign options (f5c_tpu/cli.py:248-261)."""
     p.add_argument("--summary", help="write per-read summary TSV")
@@ -105,16 +213,12 @@ def main(argv=None) -> int:
     ap.add_argument("--version", action="version",
                     version=f"f5c-tpu-torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("call-methylation", help="CpG methylation calling",
-                       conflict_handler="resolve")
+    p = sub.add_parser("call-methylation", help="CpG methylation calling")
     _add_common_meth_args(p)
     p.add_argument("--meth-out-version", type=int, choices=[1, 2], default=2)
-    _add_device_arg(p)
-    p = sub.add_parser("eventalign", help="signal-to-reference alignment",
-                       conflict_handler="resolve")
+    p = sub.add_parser("eventalign", help="signal-to-reference alignment")
     _add_common_meth_args(p)
     _add_eventalign_args(p)
-    _add_device_arg(p)
     args = ap.parse_args(argv)
 
     unported = [flag for flag, given in (

@@ -16,35 +16,39 @@
 //
 // abea_fill_window_kernel: one block per read (a ragged grid over the
 // batch's ultra reads), 128 threads, three band rows in shared memory,
-// and the band step of abea_band.cuh -- the very code of the unchunked
-// fill, so the two are bit-identical.  A block loads its read's state
-// record (ST_WORDS f32, ~1 KB), runs n_win windows of WIN bands from band
-// `base` and writes the state it reaches at the end of every window.  The
-// forward pass is one launch over the whole read with no trace (it writes
-// the checkpoint of every window and, in the last one, the backtrace
-// start); the backward pass re-fills one window from its checkpoint with
-// the trace on.  Bands at or past the read's end are not run: the state
+// and the band step, input staging and best-start reduction of
+// abea_band.cuh -- the very code of the unchunked fill, so the two are
+// bit-identical.  A block loads its read's state record (ST_WORDS f32,
+// ~1 KB), stages the inputs of its first tile from the record's
+// lower-left corner, runs n_win windows of WIN bands from band `base` and
+// writes the state it reaches at the end of every window.  The forward
+// pass is one launch over the whole read with no trace (it writes the
+// checkpoint of every window and, in the last one, the backtrace start);
+// the backward pass re-fills one window from its checkpoint with the
+// trace on.  Bands at or past the read's end are not run: the state
 // stays, and the trace rows there are 0.
 // What bounds it: as for the unchunked fill, the band recurrence -- each
 // band needs the previous band's edge cells, so a read is a chain of
-// dependent steps of a few global loads and one barrier: latency.  An
-// ultra batch holds few reads, so few SMs are busy; the design keeps the
-// chain inside one launch (no host round trip per window) and leaves the
-// rest to later work (prefetching the next k-mers/events).
+// dependent steps: latency.  An ultra batch holds few reads, so few SMs
+// are busy; the design keeps the chain inside one launch (no host round
+// trip per window) and the step on shared memory.
 //
-// abea_walk_window_kernel: one thread per read walks down one window from
+// abea_walk_window_kernel: one warp per read walks down one window from
 // its carried (k, e, n) while e + k + 2 >= base, the cond of walk_window,
 // and writes its 2-bit directions straight into the read's output at bit
-// offset 2n.  A window's walk rarely ends on a multiple of 4 steps: the
-// next window's walk starts by loading that partial byte and ORs on.
+// offset 2n -- abea_walk.cuh's walk, shared with the unchunked walk.  A
+// window's walk rarely ends on a multiple of 4 steps: the next window's
+// walk starts by loading that partial byte and ORs on.
 // What bounds it: each step's two dependent loads (the band's ll_k, then
-// the trace byte), serial per read.
+// the trace byte), from the staged tiles in shared memory; serial per
+// read.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "abea_band.cuh"
+#include "abea_walk.cuh"
 
 namespace {
 
@@ -62,6 +66,7 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
     float* __restrict__ state_out, uint8_t* __restrict__ trace,
     int32_t* __restrict__ llk_out) {
   __shared__ float rows[3][PAD];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int i = blockIdx.x;
   const int o = threadIdx.x;
   const ReadIn rd = read_in(i, ev_pool, ev_off, ev_len, rk_pool, rk_off,
@@ -72,36 +77,39 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
   uint8_t* tr = trace ? trace + i * span * PAD : nullptr;
   int32_t* llk = llk_out ? llk_out + i * span : nullptr;
 
-  const float* st = state_in + static_cast<int64_t>(i) * ST_WORDS;
-  rows[(base - 1) % 3][o] = st[ST_PREV + o];
-  rows[(base - 2) % 3][o] = st[ST_PREV2 + o];
+  const float* st_in = state_in + static_cast<int64_t>(i) * ST_WORDS;
+  rows[(base - 1) % 3][o] = st_in[ST_PREV + o];
+  rows[(base - 2) % 3][o] = st_in[ST_PREV2 + o];
   BandState s;
-  s.ll_k = __float_as_int(st[ST_LLK]);
-  s.k2 = __float_as_int(st[ST_K2]);
+  s.ll_k = __float_as_int(st_in[ST_LLK]);
+  s.k2 = __float_as_int(st_in[ST_K2]);
   s.ll_e = base - 3 - s.ll_k;
-  s.best_e = __float_as_int(st[ST_BEST_E]);
-  s.best_s = st[ST_BEST_S];
-  __syncthreads();
+  s.best_e = __float_as_int(st_in[ST_BEST_E]);
+  s.best_s = st_in[ST_BEST_S];
+  Cand c{-CUDART_INF_F, 0x7fffffff, -1};
+  Stage st;
+  st.bind(smem);
+  st.init(o, s.ll_k, s.ll_e, rd, m);  // ends with a barrier
 
-  int next = base;  // the next band to run
+  int next = base, left = 0;  // the next band to run; bands to a new tile
   for (int j = 0; j < n_win; ++j) {
     const int lo = base + j * win;
     const int hi = lo + win;
-    const int stop = hi < nb ? hi : nb;
-    for (; next < stop; ++next) {
-      const int frm = band_step(rows, next, o, rd, m, s);
-      if (tr) {
-        const int64_t b = next - base;
-        tr[b * PAD + o] = static_cast<uint8_t>(frm);
-        if (o == 0) llk[b] = s.ll_k;
-      }
-    }
+    run_bands(rows, next, hi < nb ? hi : nb, o, rd, m, st, s, c, left,
+              [&](int b, int frm) {
+                if (tr) {
+                  tr[static_cast<int64_t>(b - base) * PAD + o] =
+                      static_cast<uint8_t>(frm);
+                  if (o == 0) llk[b - base] = s.ll_k;
+                }
+              });
     if (tr) {
       for (int b = (lo > nb ? lo : nb); b < hi; ++b) {
         tr[static_cast<int64_t>(b - base) * PAD + o] = 0;
         if (o == 0) llk[b - base] = 0;
       }
     }
+    reduce_best(o, st, s, c);
     float* so = state_out + (static_cast<int64_t>(i) * n_win + j) * ST_WORDS;
     so[ST_PREV + o] = rows[(next - 1) % 3][o];
     so[ST_PREV2 + o] = rows[(next - 2) % 3][o];
@@ -114,39 +122,22 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
   }
 }
 
-__global__ void abea_walk_window_kernel(
+__global__ void __launch_bounds__(32) abea_walk_window_kernel(
     const uint8_t* __restrict__ trace, const int32_t* __restrict__ llk_all,
     int base, int win, int32_t* __restrict__ kst,
-    const int64_t* __restrict__ byte_off, uint8_t* __restrict__ out,
-    int n_reads) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_reads) return;
-  const uint8_t* tr = trace + static_cast<int64_t>(i) * win * PAD;
-  const int32_t* llk = llk_all + static_cast<int64_t>(i) * win;
-  uint8_t* dst = out + byte_off[i];
-  const int64_t cap = byte_off[i + 1] - byte_off[i];
+    const int64_t* __restrict__ byte_off, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int i = blockIdx.x;
+  const int lane = threadIdx.x;
   int k = kst[3 * i], e = kst[3 * i + 1], n = kst[3 * i + 2];
-  // the byte the previous window's walk left partly written
-  unsigned acc = ((n & 3) != 0 && (n >> 2) < cap) ? dst[n >> 2] : 0u;
-  while (k >= 0 && e >= 0 && e + k + 2 >= base) {
-    int b = e + k + 2 - base;
-    b = b >= win ? win - 1 : b;
-    int o = k - llk[b];
-    o = o < 0 ? 0 : (o >= PAD ? PAD - 1 : o);
-    const int f = tr[static_cast<int64_t>(b) * PAD + o];
-    acc |= static_cast<unsigned>(f) << (2 * (n & 3));
-    if ((n & 3) == 3) {
-      if ((n >> 2) < cap) dst[n >> 2] = static_cast<uint8_t>(acc);
-      acc = 0;
-    }
-    k -= (f != FROM_U);
-    e -= (f != FROM_L);
-    ++n;
+  walk_tiles(trace + static_cast<int64_t>(i) * win * PAD,
+             llk_all + static_cast<int64_t>(i) * win, win, base, k, e, n,
+             out + byte_off[i], byte_off[i + 1] - byte_off[i], smem, lane);
+  if (lane == 0) {
+    kst[3 * i] = k;
+    kst[3 * i + 1] = e;
+    kst[3 * i + 2] = n;
   }
-  if ((n & 3) != 0 && (n >> 2) < cap) dst[n >> 2] = static_cast<uint8_t>(acc);
-  kst[3 * i] = k;
-  kst[3 * i + 1] = e;
-  kst[3 * i + 2] = n;
 }
 
 }  // namespace
@@ -155,17 +146,21 @@ extern "C" {
 
 // Launches the windowed fill on `stream`; allocates nothing; returns
 // cudaGetLastError() after the launch.  `trace` and `llk` may be null
-// (no trace: the forward pass).
+// (no trace: the forward pass).  `smem_bytes` is the block's dynamic
+// shared memory as the wrapper sizes it (ops/abea.py fill_smem_bytes,
+// walk_smem_bytes); a size other than the kernel's layout is refused.
 int f5c_abea_fill_window(
     const void* ev_pool, const void* ev_off, const void* ev_len,
     const void* rk_pool, const void* rk_off, const void* rk_len,
     const void* level_mean, const void* level_stdv,
     const void* level_log_stdv, const void* params, const void* band_off,
     const void* state_in, void* state_out, void* trace, void* llk,
-    int n_model, int n_reads, int base, int win, int n_win, void* stream) {
+    int n_model, int n_reads, int base, int win, int n_win, int smem_bytes,
+    void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
+  if (smem_bytes != FILL_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (n_reads > 0) {
-    abea_fill_window_kernel<<<n_reads, PAD, 0,
+    abea_fill_window_kernel<<<n_reads, PAD, smem_bytes,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ev_pool),
         static_cast<const int64_t*>(ev_off),
@@ -189,16 +184,16 @@ int f5c_abea_fill_window(
 // `out` in place.
 int f5c_abea_walk_window(const void* trace, const void* llk, void* kst,
                          const void* byte_off, void* out, int base, int win,
-                         int n_reads, void* stream) {
+                         int n_reads, int smem_bytes, void* stream) {
   cudaGetLastError();
+  if (smem_bytes != WALK_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (n_reads > 0) {
-    const int threads = 128;
-    abea_walk_window_kernel<<<(n_reads + threads - 1) / threads, threads, 0,
+    abea_walk_window_kernel<<<n_reads, 32, smem_bytes,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(trace),
         static_cast<const int32_t*>(llk), base, win,
         static_cast<int32_t*>(kst), static_cast<const int64_t*>(byte_off),
-        static_cast<uint8_t*>(out), n_reads);
+        static_cast<uint8_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,12 +25,12 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from f5c_tpu.io.bam import BamReader, write_bam
-from f5c_tpu.io.fast5 import Signal
-from f5c_tpu.io.fasta import read_fastx
-from f5c_tpu.io.readdb import ReadDB
-from f5c_tpu.io.slow5 import Slow5File, write_blow5
-from f5c_tpu.models import builtin_model
+from .io.bam import BamReader, write_bam
+from .io.fast5 import Signal
+from .io.fasta import read_fastx
+from .io.readdb import ReadDB
+from .io.slow5 import Slow5File, write_blow5
+from .models import builtin_model
 
 ROLES = {"bam": "reads.bam", "genome": "genome.fa", "reads": "reads.fasta",
          "slow5": "signals.blow5"}

@@ -36,11 +36,11 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 # C entry points: every pointer and the stream as void*, sizes as int
 _SIGNATURES = {
-    "f5c_abea_fill": [_vp] * 14 + [_int] * 2 + [_vp],
-    "f5c_abea_walk": [_vp] * 8 + [_int] + [_vp],
+    "f5c_abea_fill": [_vp] * 14 + [_int] * 3 + [_vp],
+    "f5c_abea_walk": [_vp] * 8 + [_int] * 2 + [_vp],
     "f5c_hmm_forward": [_vp] * 16 + [_int] * 5 + [_vp],
-    "f5c_abea_fill_window": [_vp] * 15 + [_int] * 5 + [_vp],
-    "f5c_abea_walk_window": [_vp] * 5 + [_int] * 3 + [_vp],
+    "f5c_abea_fill_window": [_vp] * 15 + [_int] * 6 + [_vp],
+    "f5c_abea_walk_window": [_vp] * 5 + [_int] * 4 + [_vp],
 }
 
 _lock = threading.Lock()

@@ -30,8 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from f5c_tpu.constants import (ABEA_EPSILON_SKIP, ABEA_LP_TRIM_P,
-                               ALN_BANDWIDTH)
+from ..constants import ABEA_EPSILON_SKIP, ABEA_LP_TRIM_P, ALN_BANDWIDTH
 
 # f5c_tpu/ops/abea.py:40-46
 BW = ALN_BANDWIDTH           # 100 active band offsets
@@ -42,6 +41,53 @@ NEG_INF = float("-inf")
 HALF = BW // 2
 LL_K0 = -1 - HALF            # band 0's lower-left k-mer (-51)
 START_OFF = -1 - LL_K0       # band offset of cells (k=-1, e=-1) and (-1, 0)
+
+
+# The CUDA kernels stage their inputs in shared memory by tiles of bands
+# (csrc/abea_band.cuh, csrc/abea_walk.cuh); the functions below are the
+# reach of a tile, from which the wrappers size that memory.
+FILL_TILE = 128      # bands per staged tile of the fill kernels
+WALK_TILE = 128      # bands per staged tile of the walk kernels
+
+
+def fill_tile_reach(ll_k: int, ll_e: int, tile: int = FILL_TILE):
+    """The k-mers ``[k_lo, k_hi)`` and events ``[e_lo, e_hi)`` that bands
+    b .. b+tile-1 of the fill can read, given band b-1's lower-left k-mer
+    ``ll_k`` and event ``ll_e``.  Each band moves its lower-left corner by
+    one k-mer or one event (Suzuki's rule), so band b+j has
+    ll_k <= k_ll <= ll_k + j + 1 and ll_e <= e_ll <= ll_e + j + 1, and its
+    cells are (k_ll + o, e_ll - o) for o < BW."""
+    return ll_k, ll_k + tile + BW, ll_e - BW + 1, ll_e + tile + 1
+
+
+def fill_ring_slots(tile: int = FILL_TILE) -> int:
+    """Slots of the fill's k-mer and event rings: a power of two that holds
+    the reach of the current tile and the next one, so that the next
+    tile's inputs load while the current one runs (two tiles' reach:
+    2 * tile + BW, from fill_tile_reach)."""
+    k_lo, k_hi, _, _ = fill_tile_reach(0, 0, 2 * tile)
+    return 1 << (k_hi - k_lo - 1).bit_length()
+
+
+def fill_smem_bytes(tile: int = FILL_TILE) -> int:
+    """Dynamic shared memory of a fill block: the k-mer ring (kms, stdv,
+    log-term, pad as float4), the event ring (f32), the best-start
+    reduction (PAD x (f32, i32, i32))."""
+    return fill_ring_slots(tile) * (16 + 4) + PAD * 12
+
+
+def walk_tile_reach(top: int, tile: int = WALK_TILE):
+    """The bands ``[lo, hi]`` of a walk tile whose top band is ``top``.
+    The walk only descends, by one band (a stay or a skip) or two (a
+    step), so from a tile's top it leaves the tile at band lo - 1 or
+    lo - 2, both in the tile below, whose top is lo - 1."""
+    return top - tile + 1, top
+
+
+def walk_smem_bytes(tile: int = WALK_TILE) -> int:
+    """Dynamic shared memory of a walk block: two tiles (double-buffered)
+    of trace rows (PAD bytes) and lower-left k-mers (i32)."""
+    return 2 * tile * (PAD + 4)
 
 
 def read_params(ev_len: np.ndarray, rk_len: np.ndarray, scale: np.ndarray,

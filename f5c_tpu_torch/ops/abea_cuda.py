@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .abea import PAD, abea_fill_plain, abea_walk_plain
+from .abea import (PAD, abea_fill_plain, abea_walk_plain, fill_smem_bytes,
+                   walk_smem_bytes)
 
 launches = {"abea_fill": 0, "abea_walk": 0}
 
@@ -64,7 +65,8 @@ def abea_fill(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
         level_mean.data_ptr(), level_stdv.data_ptr(),
         level_log_stdv.data_ptr(), params.data_ptr(), band_off.data_ptr(),
         trace.data_ptr(), llk.data_ptr(), start_e.data_ptr(),
-        level_mean.shape[0], B, _build.stream_handle(dev))
+        level_mean.shape[0], B, fill_smem_bytes(),
+        _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_fill", err)
     launches["abea_fill"] += 1
     return trace, llk, start_e
@@ -102,7 +104,8 @@ def abea_walk(trace, llk, band_off, start_e, rk_len, byte_off,
     err = lib.f5c_abea_walk(
         trace.data_ptr(), llk.data_ptr(), band_off.data_ptr(),
         start_e.data_ptr(), rk_len.data_ptr(), byte_off.data_ptr(),
-        flat.data_ptr(), n.data_ptr(), B, _build.stream_handle(dev))
+        flat.data_ptr(), n.data_ptr(), B, walk_smem_bytes(),
+        _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_walk", err)
     launches["abea_walk"] += 1
     return flat, n

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .abea import PAD
+from .abea import PAD, fill_smem_bytes, walk_smem_bytes
 from .abea_ultra import (STATE_WORDS, align_windowed, fill_window_plain,
                          walk_window_plain)
 
@@ -76,7 +76,8 @@ def abea_fill_window(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
         level_log_stdv.data_ptr(), params.data_ptr(), band_off.data_ptr(),
         state.data_ptr(), out.data_ptr(),
         tr.data_ptr() if trace else None, lk.data_ptr() if trace else None,
-        level_mean.shape[0], B, base, win, n_win, _build.stream_handle(dev))
+        level_mean.shape[0], B, base, win, n_win, fill_smem_bytes(),
+        _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_fill_window", err)
     launches["abea_fill_window"] += 1
     return out, tr, lk
@@ -110,7 +111,7 @@ def abea_walk_window(trace, llk, base: int, kst, flat, byte_off):
     err = lib.f5c_abea_walk_window(
         trace.data_ptr(), llk.data_ptr(), kst.data_ptr(),
         byte_off.data_ptr(), flat.data_ptr(), base, trace.shape[1], B,
-        _build.stream_handle(dev))
+        walk_smem_bytes(), _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_walk_window", err)
     launches["abea_walk_window"] += 1
     return kst, flat

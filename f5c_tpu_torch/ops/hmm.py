@@ -18,9 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from f5c_tpu.constants import (HMM_BACKGROUND_EMISSION, HMM_P_BAD,
-                               HMM_P_SKIP, HMM_P_SKIP_SELF, TRANS_CLIP_SELF,
-                               TRANS_START_TO_CLIP)
+from ..constants import (HMM_BACKGROUND_EMISSION, HMM_P_BAD, HMM_P_SKIP,
+                         HMM_P_SKIP_SELF, TRANS_CLIP_SELF,
+                         TRANS_START_TO_CLIP)
 
 # f5c_tpu/ops/hmm.py:42-52
 _LP_SC = float(np.log(TRANS_START_TO_CLIP))

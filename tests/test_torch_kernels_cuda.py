@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from f5c_tpu.models import builtin_model
+from f5c_tpu_torch.models import builtin_model
 from f5c_tpu_torch import synthetic
 from f5c_tpu_torch.ops import abea, abea_cuda, hmm, hmm_cuda
 
