@@ -10,10 +10,13 @@ Phases (each prints one line; any failure raises and exits nonzero):
 2. build: the kernels of f5c_tpu_torch/csrc with nvcc for sm_90a;
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the card -- the ABEA kernels (unchunked and windowed) bit-identical,
-   HMM forward within f5c_tpu_torch/ops/hmm.py's tolerance -- on the
+   the fused HMM forward (window metadata in, scores out) within
+   f5c_tpu_torch/ops/hmm.py's tolerance and its in-kernel k-mer ranks
+   (the rank probe) bit-identical to ops/hmm_meta.build_inputs -- on the
    golden reads' own launches (also with every read forced through the
    windowed ABEA) and on synthetic batches (mixed read lengths, HMM
-   windows wider than 128 k-mers, one read of ~5,000 bands in windows of
+   windows of 1-300 and of 600, 2,500 and 5,000 k-mers, the rank cases of
+   tests/test_torch_ranks.py, one read of ~5,000 bands in windows of
    1,000, and one long read -- a chain of ~420 tiles of the fill and the
    walk -- among 40 short ones, held to the plain versions at two of its
    windows);
@@ -27,7 +30,9 @@ Phases (each prints one line; any failure raises and exits nonzero):
    default -K 512) through call-methylation, twice warm; every copy's
    rows within tolerance of meth.exp; reads/s and stage times; then each
    kernel against its plain version on the launches of that run, timed
-   with CUDA events at those shapes;
+   with CUDA events at those shapes (the HMM with its launch's window
+   classes, warp-steps, and the time of the unfused input assembly
+   build_inputs that the kernel replaces);
 6. ultra run: 4 synthetic reads of 100-300 kb (datasets.ultra_dataset)
    through call-methylation and eventalign at the default settings, where
    every read takes the windowed ABEA, and again with the trace budget
@@ -35,7 +40,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
    output files; walls, peak device memory, windows per read; the window
    kernels held bit for bit to their plain versions, and timed, at two
    windows of the windowed run (the last one, from band ~786k, and a full
-   one of 65,536 bands x 4 reads); the unchunked kernels timed.
+   one of 65,536 bands x 4 reads), and the HMM launches of that run held
+   to theirs; the unchunked kernels timed.
 
 It prints a JSON line of the kernels (launches on the main path, max
 abs error against the plain version, ms, plain ms, and the roofline bound
@@ -88,6 +94,11 @@ KERNELS = {
     "abea_walk_window": ("f5c_tpu_torch/csrc/abea_ultra.cu",
                          "f5c_tpu/ops/abea_ultra.py:306"),
 }
+# the wrapper of a kernel where its name differs (the fused HMM kernel
+# counts its launches as hmm_forward)
+WRAPPERS = {"hmm_forward": "hmm_forward_meta"}
+HMM_META = ("meta", "packed_ref", "read_tab", "ev_pool", "level_mean",
+            "level_stdv", "level_log_stdv")
 
 
 def say(phase: str, **fields) -> None:
@@ -131,10 +142,11 @@ class Spy:
         self._orig = []
         for mod in modules:
             for name in KERNELS:
-                if hasattr(mod, name):
-                    fn = getattr(mod, name)
-                    self._orig.append((mod, name, fn))
-                    setattr(mod, name, self._wrap(name, fn))
+                attr = WRAPPERS.get(name, name)
+                if hasattr(mod, attr):
+                    fn = getattr(mod, attr)
+                    self._orig.append((mod, attr, fn))
+                    setattr(mod, attr, self._wrap(name, fn))
 
     def _wrap(self, name, fn):
         def spy(*args, **kwargs):
@@ -247,25 +259,24 @@ def read_text(path: str) -> str:
 def compare_launches(spy_calls, torch):
     """Each recorded kernel call re-run through the kernel and the plain
     version on the card.  Returns {name: max_abs_err} (0 = bit-identical;
-    ABEA must be, the HMM must be within tolerance)."""
+    ABEA must be, the HMM must be within tolerance, and its rank probe,
+    "hmm_ranks", bit-identical)."""
     from f5c_tpu_torch.ops import (abea, abea_cuda, abea_ultra,
-                                   abea_ultra_cuda, hmm, hmm_cuda)
+                                   abea_ultra_cuda, hmm_cuda)
 
     err = {}
-    for args, kw in spy_calls["abea_fill"]:
+    for args, kw in spy_calls.get("abea_fill", ()):
         got = abea_cuda.abea_fill(*args, **kw)
         want = abea.abea_fill_plain(*args[:11])
         err["abea_fill"] = max(err.get("abea_fill", 0), _int_err(got, want))
-    for args, kw in spy_calls["abea_walk"]:
+    for args, kw in spy_calls.get("abea_walk", ()):
         got = abea_cuda.abea_walk(*args, **kw)
         want = abea.abea_walk_plain(*args[:6])
         err["abea_walk"] = max(err.get("abea_walk", 0), _int_err(got, want))
-    for args, kw in spy_calls["hmm_forward"]:
-        got = hmm_cuda.hmm_forward(*args, **kw)
-        want = hmm.hmm_forward_plain(*args, **kw)
-        torch.testing.assert_close(got, want, rtol=hmm.RTOL, atol=hmm.ATOL)
-        e = float((got - want).abs().max()) if got.numel() else 0.0
+    for args, kw in spy_calls.get("hmm_forward", ()):
+        e, e_ranks = hold_hmm(torch, args, kw)
         err["hmm_forward"] = max(err.get("hmm_forward", 0.0), e)
+        err["hmm_ranks"] = max(err.get("hmm_ranks", 0), e_ranks)
     for args, kw in spy_calls.get("abea_fill_window", ()):
         got = abea_ultra_cuda.abea_fill_window(*args, **kw)
         want = abea_ultra.fill_window_plain(*args, **kw)
@@ -277,11 +288,32 @@ def compare_launches(spy_calls, torch):
         err["abea_walk_window"] = max(err.get("abea_walk_window", 0),
                                       _int_err(got, want))
     for name in ("abea_fill", "abea_walk", "abea_fill_window",
-                 "abea_walk_window"):
+                 "abea_walk_window", "hmm_ranks"):
         if err.get(name, 0) != 0:
             raise AssertionError(f"{name}: kernel differs from plain "
                                  f"(max abs err {err[name]})")
     return err
+
+
+def hold_hmm(torch, args, kw):
+    """One fused HMM launch (meta, packed_ref, read_tab, ev_pool, the
+    model tables, k) against its plain version, within hmm.py's
+    tolerance, and its in-kernel ranks (the probe) against build_inputs,
+    bit for bit.  Returns (max abs error of the scores, of the ranks)."""
+    from f5c_tpu_torch.ops import hmm, hmm_cuda, hmm_meta
+
+    got = hmm_cuda.hmm_forward_meta(*args, **kw)
+    want = hmm_meta.hmm_forward_meta_plain(
+        *args[:8], allow_pre=kw.get("allow_pre", True),
+        allow_post=kw.get("allow_post", True))
+    torch.testing.assert_close(got, want, rtol=hmm.RTOL, atol=hmm.ATOL)
+    fin = torch.isfinite(want)
+    e = float((got - want)[fin].abs().max()) if fin.any() else 0.0
+    meta, packed, read_tab, k = args[0], args[1], args[2], args[7]
+    kw_r = max(int(hmm_meta.window_fields(meta, k)["n_km"].max()), 1)
+    ranks = hmm_cuda.hmm_window_ranks(meta, packed, read_tab, k, kw_r)
+    want_r = hmm_meta.build_inputs(meta, packed, read_tab, k=k, kw=kw_r)[0]
+    return e, _int_err((ranks,), (want_r,))
 
 
 def _int_err(got, want) -> int:
@@ -307,7 +339,9 @@ def _int_err(got, want) -> int:
 
 def synthetic_calls(torch, dev):
     """Kernel calls on synthetic inputs: mixed read lengths (one read whose
-    events do not follow it) and HMM windows up to 300 k-mers wide."""
+    events do not follow it), and HMM windows of 1-300 k-mers (in launch
+    order, and with every window on a warp of its own) and of 600, 2,500
+    and 5,000, each with the soft clips on and off."""
     import numpy as np
 
     from f5c_tpu_torch import synthetic
@@ -330,17 +364,42 @@ def synthetic_calls(torch, dev):
     trace, llk, start_e = abea.abea_fill_plain(*fill_args)
     walk_args = (trace, llk, t["band_off"], start_e, t["rk_len"],
                  t["byte_off"])
-    w = synthetic.hmm_windows(
-        rng, [int(n) for n in rng.integers(1, 300, 200)] + [129, 256, 300],
-        cpg)
-    hmm_args = tuple(torch.as_tensor(w[k], device=dev) for k in (
-        "ranks", "n_km", "ev_pool", "ev_start", "stride", "n_ev", "scale",
-        "shift", "var", "lp_stay", "lp_step", "level_mean", "level_stdv",
-        "level_log_stdv"))
+    hmm_calls = []
+    for n_kmers in ([int(n) for n in rng.integers(1, 300, 200)]
+                    + [129, 256, 300], [600, 20], [2500], [5000]):
+        w = synthetic.hmm_meta_windows(rng, n_kmers, cpg)
+        hmm_args = tuple(torch.as_tensor(w[k], device=dev)
+                         for k in HMM_META) + (w["k"],)
+        narrow = (w["n_narrow"], 0) if len(n_kmers) > 100 else (0,)
+        hmm_calls += [(hmm_args, {"allow_pre": a, "allow_post": a,
+                                  "n_narrow": n, "max_km": w["max_km"]})
+                      for a in (True, False) for n in narrow]
     return {"abea_fill": [(fill_args + (x["n_bands"],), {})],
             "abea_walk": [(walk_args + (x["n_bytes"],), {})],
-            "hmm_forward": [(hmm_args, {"allow_pre": a, "allow_post": a})
-                            for a in (True, False)]}
+            "hmm_forward": hmm_calls}
+
+
+def rank_probe_cases(torch, dev) -> int:
+    """The rank probe held to build_inputs, bit for bit, on the cases of
+    synthetic.rank_cases; returns the windows checked."""
+    import numpy as np
+
+    from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.models import builtin_model
+    from f5c_tpu_torch.ops import hmm_cuda, hmm_meta
+
+    k = builtin_model("dna_r9_cpg").k
+    n = 0
+    for c in synthetic.rank_cases(np.random.default_rng(2029), k):
+        meta, packed, read_tab = (torch.as_tensor(c[key], device=dev) for key
+                                  in ("meta", "packed_ref", "read_tab"))
+        got = hmm_cuda.hmm_window_ranks(meta, packed, read_tab, k, c["kw"])
+        want = hmm_meta.build_inputs(meta, packed, read_tab, k=k,
+                                     kw=c["kw"])[0]
+        if _int_err((got,), (want,)) != 0:
+            raise AssertionError("rank probe differs from build_inputs")
+        n += meta.shape[0]
+    return n
 
 
 def synthetic_window_calls(torch, dev):
@@ -595,6 +654,10 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                      "full": (nb - 2) // win - 1})
                 timings = timings["full"]
                 kernel_ms.update(info)
+                err.update(compare_launches(
+                    {"hmm_forward": spy.calls["hmm_forward"]}, torch))
+                kernel_ms.update(hmm_launches=len(spy.calls["hmm_forward"]),
+                                 hmm_max_abs_err=err["hmm_forward"])
             else:
                 kernel_ms.update(time_unchunked_kernels(torch, spy.calls))
             del spy
@@ -708,8 +771,8 @@ def bound_of(name: str, args, kw, out):
         steps = int(out[1].long().sum())
         return roofline(5 * steps + _nbytes(*args[2:6], *out), 0)
     if name == "hmm_forward":
-        cells = int((args[1].long() * args[5].long()).sum())
-        return roofline(_nbytes(*args, out), cells * HMM_CELL_OPS)
+        return roofline(_nbytes(*args[:7], out),
+                        hmm_shape(args, kw)["cells"] * HMM_CELL_OPS)
     if name == "abea_fill_window":
         base, win, n_win = args[12], args[13], args[14]
         nb = (args[10][1:] - args[10][:-1]).long()
@@ -724,6 +787,18 @@ def bound_of(name: str, args, kw, out):
         return roofline(5 * steps + -(-steps // 4) + 2 * _nbytes(args[3]),
                         0)
     raise KeyError(name)
+
+
+def hmm_shape(args, kw) -> dict:
+    """The work of one fused HMM launch, from its window metadata: its
+    windows, width classes, warps and warp-steps (hmm_cuda.launch_shape)
+    and its (k-mer, event) cells."""
+    from f5c_tpu_torch.ops import hmm_cuda, hmm_meta
+
+    f = hmm_meta.window_fields(args[0], args[7])
+    return hmm_cuda.launch_shape(f["n_km"].cpu().numpy(),
+                                 f["n_ev"].cpu().numpy(),
+                                 kw.get("n_narrow", 0))
 
 
 def device_busy(torch, prof, top: int = 6):
@@ -812,7 +887,7 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, ROOT)
     from f5c_tpu_torch import backend, datasets
     from f5c_tpu_torch.ops import (_build, abea, abea_cuda, abea_ultra_cuda,
-                                   hmm, hmm_cuda)
+                                   hmm_cuda, hmm_meta)
     from f5c_tpu_torch.pipeline import runner
 
     # 1. probe
@@ -873,8 +948,10 @@ def main(argv: list[str]) -> int:
             spy.close()
         err_golden = compare_launches(spy.calls, torch)
         err_synth = compare_launches(synthetic_calls(torch, dev), torch)
+        probed = rank_probe_cases(torch, dev)
         torch.cuda.synchronize()
-        say("kernel_vs_plain", golden=err_golden, synthetic=err_synth)
+        say("kernel_vs_plain", golden=err_golden, synthetic=err_synth,
+            rank_probe_windows=probed)
 
         # 3b. the windowed ABEA: golden reads forced windowed + synthetic
         forced_windows()
@@ -974,27 +1051,40 @@ def main(argv: list[str]) -> int:
                           lambda: abea.abea_fill_plain(*fill_a[:11])),
             "abea_walk": (lambda: abea_cuda.abea_walk(*walk_a, **walk_kw),
                           lambda: abea.abea_walk_plain(*walk_a[:6])),
-            "hmm_forward": (lambda: hmm_cuda.hmm_forward(*hmm_a, **hmm_kw),
-                            lambda: hmm.hmm_forward_plain(*hmm_a, **hmm_kw)),
+            "hmm_forward": (
+                lambda: hmm_cuda.hmm_forward_meta(*hmm_a, **hmm_kw),
+                lambda: hmm_meta.hmm_forward_meta_plain(*hmm_a)),
         }
         # the serial chains of the ABEA launch: the longest read's bands
         # (fill) and the longest walk's steps
         chain = int((fill_a[10][1:] - fill_a[10][:-1]).max())
         steps = int(abea_cuda.abea_walk(*walk_a, **walk_kw)[1].max())
+        hmm_work = hmm_shape(hmm_a, hmm_kw)
         shapes = dict(reads=int(fill_a[2].shape[0]), bands=fill_a[11],
                       chain_bands=chain, walk_steps=steps,
-                      windows=int(hmm_a[0].shape[0]),
-                      window_width=int(hmm_a[0].shape[1]))
+                      **{f"hmm_{k}": v for k, v in hmm_work.items()},
+                      hmm_max_km=hmm_kw["max_km"])
         timings = {name: (time_ms(torch, kern, 20), time_ms(torch, plain, 2),
                           *bound_of(name, args, kw, kern()))
                    for name, (kern, plain), (args, kw) in zip(
                        timed, timed.values(),
                        ((fill_a, fill_kw), (walk_a, walk_kw),
                         (hmm_a, hmm_kw)))}
+        # the unfused input assembly the HMM kernel replaces (K6: the
+        # parent's torch ops before its forward kernel), at this launch
+        k6_ms = time_ms(torch, lambda: hmm_meta.build_inputs(
+            *hmm_a[:3], k=hmm_a[7], kw=max(hmm_kw["max_km"], 1)), 20)
+        # an SM sub-partition's time per warp-step: the kernel's time over
+        # the warp-steps each of the card's 4 x SMs sub-partitions takes
+        smsp = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+        ns_ws = (1e6 * timings["hmm_forward"][0] * smsp
+                 / hmm_work["warp_steps"])
         say("timing", shapes=shapes, card=card.replace(" ", "_"),
             best_reads_per_s=f"{n_reads / min(walls):.2f}",
             fill_ns_per_band=f"{1e6 * timings['abea_fill'][0] / chain:.1f}",
-            walk_ns_per_step=f"{1e6 * timings['abea_walk'][0] / steps:.1f}")
+            walk_ns_per_step=f"{1e6 * timings['abea_walk'][0] / steps:.1f}",
+            hmm_ns_per_warp_step=f"{ns_ws:.1f}",
+            k6_build_inputs_ms=f"{k6_ms:.4f}")
 
         # 6. ultra-long reads through both entry points, windowed (the
         # defaults) and unchunked (budget raised); the main path of the

@@ -34,11 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
+_i64 = ctypes.c_longlong
 # C entry points: every pointer and the stream as void*, sizes as int
+# (a reference concat's length in codes as a 64-bit int)
 _SIGNATURES = {
     "f5c_abea_fill": [_vp] * 14 + [_int] * 3 + [_vp],
     "f5c_abea_walk": [_vp] * 8 + [_int] * 2 + [_vp],
-    "f5c_hmm_forward": [_vp] * 16 + [_int] * 5 + [_vp],
+    "f5c_hmm_forward_meta": [_vp] * 9 + [_i64] + [_int] * 7 + [_vp],
+    "f5c_hmm_window_ranks": [_vp] * 4 + [_i64] + [_int] * 3 + [_vp],
     "f5c_abea_fill_window": [_vp] * 15 + [_int] * 6 + [_vp],
     "f5c_abea_walk_window": [_vp] * 5 + [_int] * 4 + [_vp],
 }

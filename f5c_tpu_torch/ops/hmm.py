@@ -7,10 +7,12 @@ hmm.c:115-335.
 
 Windows are rows of a [N, KW] rank matrix, any width: one code path
 covers what the JAX package splits into 32- and 128-k-mer Pallas rows and
-the XLA scan for wider windows.  Per window: ``n_km`` k-mers, ``n_ev``
-events read from the event slab at ``ev_start + stride*i`` (stride +1 or
--1), the calibrated ``scale``/``shift``/``var`` and the transition log
-probabilities ``lp_stay``/``lp_step``.
+the XLA scan for wider windows.  The fused kernel's plain version,
+``ops/hmm_meta.hmm_forward_meta_plain``, builds that matrix from window
+metadata and runs ``hmm_forward_plain`` on it.  Per window: ``n_km``
+k-mers, ``n_ev`` events read from the event slab at ``ev_start +
+stride*i`` (stride +1 or -1), the calibrated ``scale``/``shift``/``var``
+and the transition log probabilities ``lp_stay``/``lp_step``.
 """
 
 from __future__ import annotations
@@ -38,13 +40,14 @@ _LP_BB = float(np.log(HMM_P_BAD))
 LOG_INV_SQRT_2PI = float(np.float32(-0.918938))
 NEG_INF = float("-inf")
 
-# Scores of two f32 implementations agree to |a - b| <= RTOL*|b| + ATOL.
-# Each event step rounds a handful of exp/log/log1p results (~1 ulp each,
-# and libm differs between host and card) and the KMER_SKIP chain is
-# reassociated (logcumsumexp here, a warp scan in csrc/hmm.cu, a global-
-# max cumsum in the JAX package); the error grows about linearly over a
-# window's tens to hundreds of steps, i.e. to ~1e-6 relative of scores
-# of -10..-2000 nats.  10x that margin, plus 1e-3 for scores near zero,
+# The kernel's f32 scores agree with this plain version's (float64) to
+# |a - b| <= RTOL*|b| + ATOL.  The kernel rounds each step's ex2/lg2.approx
+# results (~2^-22 each) and its f32 states (kept near zero by a per-step
+# offset) and reassociates the KMER_SKIP chain (a running-max scan); the
+# error grows about linearly over a window's steps: on an H100, 1.4e-4
+# nats on the golden windows and 0.066 on a 5,000-k-mer window scoring
+# about -16,000 (4e-6 relative; chip_smoke.py).  The JAX package's f32
+# scorers lie within the same bound of this version at their widths.  It
 # is still 20x tighter than f5c's output tolerance 0.1|t| + 0.02.
 RTOL = 1e-5
 ATOL = 1e-3
@@ -87,24 +90,37 @@ def hmm_forward_plain(ranks, n_km, ev_pool, ev_start, stride, n_ev, scale,
                       shift, var, lp_stay, lp_step, level_mean, level_stdv,
                       level_log_stdv, allow_pre: bool = True,
                       allow_post: bool = True):
-    """Forward log-likelihood per window, f32 [N]: a loop over event
-    steps, vectorised over windows and k-mers; the KMER_SKIP chain is
-    ``torch.logcumsumexp`` (as hmm._logcumsumexp_chain)."""
+    """Forward log-likelihood per window, [N] in the float type of
+    ``scale``: a loop over event steps, vectorised over windows and
+    k-mers; the KMER_SKIP chain is ``torch.logcumsumexp`` (as
+    hmm._logcumsumexp_chain).  The recurrence runs in float64 (the f32
+    constants and flank terms as the reference forms them), so that this
+    version is the exact yardstick of the f32 kernel: in f32 the states of
+    a wide window's far k-mers lie thousands of nats below the best
+    state, and their rounding adds up over the steps (on a 5,000-k-mer
+    window, f32 runs of this same code differ from float64 by about the
+    tolerance below)."""
     dev = ranks.device
     N, KW = ranks.shape
+    dt = scale.dtype
+    f64 = torch.float64
+    (ev_pool, scale, shift, var, lp_stay, lp_step, level_mean, level_stdv,
+     level_log_stdv) = (t.to(f64) for t in (
+         ev_pool, scale, shift, var, lp_stay, lp_step, level_mean,
+         level_stdv, level_log_stdv))
     n_model = level_mean.shape[0]
     r = ranks.long().clamp(0, n_model - 1)
     gp_mean = scale[:, None] * level_mean[r] + shift[:, None]
     gp_inv = 1.0 / (level_stdv[r] * var[:, None])
     gp_log = level_log_stdv[r] + torch.log(var)[:, None]
     kidx = torch.arange(KW, device=dev)
-    kf = kidx.float()[None, :]
+    kf = kidx.to(f64)[None, :]
     in_window = kidx[None, :] < n_km[:, None]
     last = (n_km - 1).clamp(min=0).long()[:, None]
     n_ev_f = n_ev.float()
-    ninf = torch.full((N, KW), NEG_INF, device=dev)
+    ninf = torch.full((N, KW), NEG_INF, dtype=f64, device=dev)
     M, B, K = ninf, ninf, ninf
-    lp_end = torch.full((N,), NEG_INF, device=dev)
+    lp_end = torch.full((N,), NEG_INF, dtype=f64, device=dev)
     L = ev_pool.shape[0]
     steps = int(n_ev.max()) if N else 0
     for i in range(steps):
@@ -124,7 +140,7 @@ def hmm_forward_plain(ranks, n_km, ev_pool, ev_start, stride, n_ev, scale,
         m_new = torch.where(torch.isneginf(mx), NEG_INF,
                             mx_s + torch.log(ssum))
         if allow_pre or i == 0:
-            pre = torch.tensor(_pre_flank(i), device=dev)
+            pre = torch.tensor(_pre_flank(i), dtype=f64, device=dev)
             m_new = torch.cat([_logaddexp(m_new[:, :1], pre), m_new[:, 1:]],
                               dim=1)
         m_new = m_new + lp_em
@@ -149,4 +165,4 @@ def hmm_forward_plain(ranks, n_km, ev_pool, ev_start, stride, n_ev, scale,
         if not allow_post:
             do_end &= i == n_ev - 1
         lp_end = torch.where(do_end, _logaddexp(lp_end, end), lp_end)
-    return lp_end
+    return lp_end.to(dt)

@@ -1,4 +1,5 @@
-"""HMM scorer inputs built on the device (K6).
+"""HMM scorer inputs built from window metadata (K6), and the plain
+version of the fused forward kernel.
 
 Counterpart of ``f5c_tpu/ops/hmm_meta.py``: every input of the forward
 pass is rebuilt from the batch's 2-bit packed disambiguated reference, a
@@ -16,6 +17,11 @@ including the two window-edge corrections the global rank planes need:
 
 The packed reference must end in >= 1 zero sentinel byte so the shifted
 adds never wrap a window across the buffer end.
+
+On the card none of this runs: csrc/hmm.cu ranks each window's k-mers in
+its prologue (csrc/hmm_ranks.cuh, held to ``build_inputs`` bit for bit
+through the probe ``hmm_cuda.hmm_window_ranks``), and ``build_inputs`` is
+the first half of the plain version ``hmm_forward_meta_plain``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .hmm import hmm_forward_plain
 from .seq_ranks import unpack_codes
 
 META_BYTES = 16
@@ -60,6 +67,20 @@ def _plane_rev(x, k):
     return acc
 
 
+def window_fields(meta, k: int) -> dict:
+    """The per-window fields of the (N, 16) u8 meta buffer as tensors on
+    its device: gstart, ev_start (i64), stride (+1/-1), n_ev, wlen, meth,
+    read_id (i64) and n_km = wlen - (k - 1) (<= 0 for an empty window)."""
+    w = meta.contiguous().view(torch.int32)          # [N, 4]
+    nev_s = w[:, 2]
+    w3 = w[:, 3]
+    wlen = w3 & 0x7FFF
+    return dict(gstart=w[:, 0].long(), ev_start=w[:, 1].long(),
+                stride=torch.where(nev_s < 0, -1, 1).to(torch.int32),
+                n_ev=nev_s.abs(), wlen=wlen, meth=(w3 >> 15) & 1,
+                read_id=((w3 >> 16) & 0xFFFF).long(), n_km=wlen - (k - 1))
+
+
 def build_inputs(meta, packed_ref, read_tab, k: int, kw: int):
     """Device-side assembly of the forward pass's inputs
     (f5c_tpu/ops/hmm_meta.py:69-154) as torch integer ops.
@@ -69,17 +90,10 @@ def build_inputs(meta, packed_ref, read_tab, k: int, kw: int):
     [N, kw], n_km i32, ev_start i64, stride i32, n_ev i32, scale, shift,
     var, lp_stay, lp_step), each per-window array of length N."""
     dev = meta.device
-    w = meta.contiguous().view(torch.int32)          # [N, 4]
-    gstart = w[:, 0].long()
-    ev_start = w[:, 1].long()
-    nev_s = w[:, 2]
-    w3 = w[:, 3]
-    wlen = w3 & 0x7FFF
-    meth = (w3 >> 15) & 1
-    read_id = ((w3 >> 16) & 0xFFFF).long()
-    stride = torch.where(nev_s < 0, -1, 1).to(torch.int32)
-    n_ev = nev_s.abs()
-    n_km = wlen - (k - 1)          # <= 0 for empty windows -> masked
+    f = window_fields(meta, k)
+    gstart, ev_start, stride, n_ev = (f["gstart"], f["ev_start"],
+                                      f["stride"], f["n_ev"])
+    wlen, meth, read_id, n_km = f["wlen"], f["meth"], f["read_id"], f["n_km"]
 
     # rank planes over the whole reference concat
     c5 = unpack_codes(packed_ref)
@@ -118,3 +132,20 @@ def build_inputs(meta, packed_ref, read_tab, k: int, kw: int):
             rt[:, RT_SCALE].contiguous(), rt[:, RT_SHIFT].contiguous(),
             rt[:, RT_VAR].contiguous(), rt[:, RT_LP_STAY].contiguous(),
             rt[:, RT_LP_STEP].contiguous())
+
+
+def hmm_forward_meta_plain(meta, packed_ref, read_tab, ev_pool, level_mean,
+                           level_stdv, level_log_stdv, k: int,
+                           allow_pre: bool = True, allow_post: bool = True):
+    """The plain version of the fused HMM kernel (csrc/hmm.cu): the
+    forward log-likelihood of every window of ``meta``, f32 [N], as
+    ``build_inputs`` (k-mer rows as wide as the widest window) followed by
+    ``ops/hmm.py:hmm_forward_plain``."""
+    n_km = window_fields(meta, k)["n_km"]
+    kw = max(int(n_km.max()), 1) if n_km.numel() else 1
+    (ranks, n_km, ev_start, stride, n_ev, scale, shift, var, lp_stay,
+     lp_step) = build_inputs(meta, packed_ref, read_tab, k=k, kw=kw)
+    return hmm_forward_plain(ranks, n_km, ev_pool, ev_start, stride, n_ev,
+                             scale, shift, var, lp_stay, lp_step, level_mean,
+                             level_stdv, level_log_stdv, allow_pre=allow_pre,
+                             allow_post=allow_post)

@@ -70,7 +70,7 @@ from ..ops.abea import (PAD, band_offsets, byte_offsets, ragged_offsets,
                         read_params)
 from ..ops.abea_ultra import WIN_BANDS
 from ..ops.hmm import transition_params
-from ..ops.hmm_meta import build_inputs, pack_meta
+from ..ops.hmm_meta import pack_meta
 from ..ops.seq_ranks import pack_codes, pack_seqs, ranks_from_packed, seq_codes
 from .methylation import MethCalls
 from .writer import AsyncWriter
@@ -934,10 +934,11 @@ class Pipeline:
         return {} if state is None else self._meth_finish([state])
 
     def _meth_prepare_dispatch(self, reads, ev_pool, ev_off):
-        """Collect CpG groups (native, threaded), then build every window's
-        inputs on the device (K6) and dispatch the forward kernel against
-        ``ev_pool`` (reads' events at ``ev_off``).  Returns the state
-        _meth_finish consumes, or None when there is nothing to score."""
+        """Collect CpG groups (native, threaded), then dispatch the forward
+        kernel, which builds every window's inputs from 16 bytes of
+        metadata (K6 fused into K2), against ``ev_pool`` (reads' events at
+        ``ev_off``).  Returns the state _meth_finish consumes, or None when
+        there is nothing to score."""
         k = self.cpg_model.k
         t_col = time.time()
         refs = [self._fetch_ref_segment(r).encode() for r in reads]
@@ -996,21 +997,22 @@ class Pipeline:
                 or max(gstart.max(), ev_start.max()) >= 2**31):
             raise ValueError("HMM batch exceeds the 16-byte window "
                              "metadata's ranges; use a smaller batch (-K)")
-        # longest event windows first keeps the warps of a block alike
-        order = np.argsort(-sizes, kind="stable")
+        # narrow windows first (two to a warp), each class by event count,
+        # longest first, which keeps the warps of a block alike
+        n_km = wlen - (k - 1)
+        order, n_narrow = hmm_cuda.order_windows(n_km, sizes)
         meta = pack_meta(gstart[order], ev_start[order],
                          (np.where(it_e2 >= it_e1, 1, -1) * sizes)[order],
                          wlen[order], it_meth[order], it_read[order])
         packed_ref = pack_codes(seq_codes(b"".join(ref_disamb) + b"\0" * 8))
-        kw = max(32, -(-int(wlen.max() - k + 1) // 32) * 32)
         dev = self.device
         t_disp = time.time()
-        (ranks, n_km, w_ev_start, stride, n_ev, scale, shift, var, w_stay,
-         w_step) = build_inputs(_h2d(meta, dev), _h2d(packed_ref, dev),
-                                _h2d(read_tab, dev), k=k, kw=kw)
-        scores = hmm_cuda.hmm_forward(
-            ranks, n_km, ev_pool, w_ev_start, stride, n_ev, scale, shift,
-            var, w_stay, w_step, *self._cpg_dev_tables())
+        # the kernel builds each window's ranks and scalars from meta, the
+        # packed reference and the read table (K6 fused into K2)
+        scores = hmm_cuda.hmm_forward_meta(
+            _h2d(meta, dev), _h2d(packed_ref, dev), _h2d(read_tab, dev),
+            ev_pool, *self._cpg_dev_tables(), k, n_narrow=n_narrow,
+            max_km=int(n_km.max()))
         self.stage_detail["hmm.dispatch_enqueue"] += time.time() - t_disp
         self.stage_detail["hmm.n_dispatch"] += 1
         self.stage_detail["hmm.n_windows"] += n_items

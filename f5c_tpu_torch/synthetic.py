@@ -5,16 +5,23 @@ even walk over their k-mers plus noise (the construction of
 ``__graft_entry__.entry``); a read listed in ``unrelated`` gets events
 that do not follow its sequence, so its alignment fails QC.  HMM windows
 are random CpG-model windows of given widths with events drawn near
-their k-mers' levels.  Everything is NumPy, made from the caller's
+their k-mers' levels, as rank rows (``hmm_windows``) or as the fused
+kernel's inputs (``hmm_meta_windows``: window metadata over a packed
+reference).  Everything is made from the caller's
 ``numpy.random.Generator``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ops.abea import band_offsets, byte_offsets, ragged_offsets, read_params
 from .ops.hmm import transition_params
+from .ops.hmm_cuda import order_windows
+from .ops.hmm_meta import (RT_LP_STAY, RT_LP_STEP, RT_RC, RT_SCALE, RT_SHIFT,
+                           RT_VAR, build_inputs, pack_meta)
+from .ops.seq_ranks import pack_codes, seq_codes
 
 
 def random_seq(rng, n: int) -> str:
@@ -95,3 +102,130 @@ def hmm_windows(rng, n_kmers, model, kw=None) -> dict:
         var=rng.uniform(1.0, 1.6, N).astype(np.float32),
         lp_stay=lp_stay, lp_step=lp_step, level_mean=model.level_mean,
         level_stdv=model.level_stdv, level_log_stdv=model.level_log_stdv)
+
+
+def _cpg_seq(rng, n: int) -> bytearray:
+    """Random bases with a CpG planted at about every eighth position."""
+    seq = bytearray(rng.choice(np.frombuffer(b"ACGT", np.uint8), n).tobytes())
+    for p in rng.integers(0, max(n - 1, 1), n // 8):
+        seq[p:p + 2] = b"CG"[:n - p]
+    return seq
+
+
+def hmm_meta_windows(rng, n_kmers, model, ordered: bool = True) -> dict:
+    """Fused HMM kernel inputs (``ops/hmm_cuda.hmm_forward_meta``) for
+    windows of ``n_kmers`` k-mers (<= 0: an empty window): each window
+    its own stretch of a random CpG-rich reference concat, the first at
+    the concat's start and the last at its end (before the zero
+    sentinel), with a C-then-G across its right edge or a C before its
+    first base G half of the time; reads of both strands, windows of both
+    ``meth`` values; events near the window's levels, half of them read
+    backwards through the pool.  With ``ordered``, the windows come in
+    the kernel's launch order (``hmm_cuda.order_windows``).  Returns the
+    wrapper's arguments by name, with n_km, n_ev, n_narrow and max_km."""
+    k = model.k
+    n_kmers = np.asarray(n_kmers, np.int64)
+    N = n_kmers.shape[0]
+    wlen = np.maximum(n_kmers + k - 1, 0)
+    ref, gstart = bytearray(), np.zeros(N, np.int64)
+    for i, wl in enumerate(wlen):
+        left = 0 if i == 0 else 2
+        right = 0 if i == N - 1 else 2
+        seg = _cpg_seq(rng, left + int(wl) + right)
+        if wl and right and rng.random() < 0.5:
+            seg[left + wl - 1:left + wl + 1] = b"CG"
+        if wl and left and rng.random() < 0.5:
+            seg[left - 1:left + 1] = b"CG"
+        gstart[i] = len(ref) + left
+        ref += seg
+    packed = pack_codes(seq_codes(bytes(ref) + b"\0" * 8))
+
+    n_reads = max(N // 4, 1)
+    read_id = np.arange(N) % n_reads
+    epb = rng.uniform(1.3, 2.5, n_reads)
+    read_tab = np.zeros((n_reads, 8), np.float32)
+    read_tab[:, RT_SCALE] = rng.uniform(0.9, 1.1, n_reads)
+    read_tab[:, RT_SHIFT] = rng.uniform(-2.0, 2.0, n_reads)
+    read_tab[:, RT_VAR] = rng.uniform(1.0, 1.6, n_reads)
+    read_tab[:, RT_LP_STAY], read_tab[:, RT_LP_STEP] = transition_params(epb)
+    read_tab[:, RT_RC] = np.arange(n_reads) % 2
+    meth = rng.integers(0, 2, N)
+
+    # the ranks (events follow them), from the plain input assembly
+    probe = pack_meta(gstart, np.zeros(N), np.ones(N), wlen, meth, read_id)
+    ranks = build_inputs(torch.from_numpy(probe), torch.from_numpy(packed),
+                         torch.from_numpy(read_tab), k=k,
+                         kw=max(int(n_kmers.max()), 1))[0].numpy()
+    pool, ev_start, n_ev = [], np.zeros(N, np.int64), np.zeros(N, np.int64)
+    pos = 0
+    for i, nk in enumerate(n_kmers):
+        ne = int(rng.integers(max(nk // 2, 1), 2 * max(nk, 1) + 2))
+        which = np.sort(rng.integers(0, max(nk, 1), ne))
+        rt = read_tab[read_id[i]]
+        ev = (rt[RT_SCALE] * model.level_mean[ranks[i, which]]
+              + rt[RT_SHIFT] + rng.normal(0.0, 1.5, ne))
+        fwd = i % 2 == 0
+        pool.append(ev if fwd else ev[::-1])
+        ev_start[i] = pos if fwd else pos + ne - 1
+        n_ev[i] = ne if fwd else -ne
+        pos += ne
+    x = dict(meta=pack_meta(gstart, ev_start, n_ev, wlen, meth, read_id),
+             n_km=n_kmers, n_ev=np.abs(n_ev))
+    n_narrow = 0
+    if ordered:
+        order, n_narrow = order_windows(n_kmers, np.abs(n_ev))
+        x = {key: v[order] for key, v in x.items()}
+    return dict(x, packed_ref=packed, read_tab=read_tab,
+                ev_pool=np.concatenate(pool).astype(np.float32),
+                level_mean=model.level_mean, level_stdv=model.level_stdv,
+                level_log_stdv=model.level_log_stdv, k=k, n_narrow=n_narrow,
+                max_km=int(n_kmers.max()))
+
+
+def rank_cases(rng, k: int) -> list[dict]:
+    """Window batches for the rank probe (``hmm_cuda.hmm_window_ranks``
+    against ``hmm_meta.build_inputs``): the cases of
+    tests/test_torch_ranks.py -- window edges on forward and reverse
+    reads, a C then a G across a read boundary (both strands), random
+    windows -- and windows at both ends of the concat, with the zero
+    sentinel and without it (where the rank planes wrap).  Each batch:
+    meta, packed_ref, read_tab and kw (its widest window's k-mers)."""
+
+    def case(refs, items, read_rc, sentinel=True):
+        off = np.concatenate([[0], np.cumsum([len(r) for r in refs])[:-1]])
+        rd, ss, se, meth = (np.array(c, np.int64) for c in zip(*items))
+        wlen = se - ss + 1
+        read_tab = np.zeros((len(read_rc), 8), np.float32)
+        read_tab[:, RT_RC] = read_rc
+        n = len(items)
+        codes = seq_codes(b"".join(refs) + (b"\0" * 8 if sentinel else b""))
+        return dict(meta=pack_meta(off[rd] + ss, np.zeros(n), np.ones(n),
+                                   wlen, meth, rd),
+                    packed_ref=pack_codes(codes), read_tab=read_tab,
+                    kw=int(wlen.max()) - k + 1)
+
+    edges = [b"AACGTACGTTTCGGATTCG", b"GGTACGTACCGTAAACGTA"]
+    cross = [b"ATTACGTACATTACCTAGC", b"GATTACAGGATCCGATTAC"]
+    cases = [case(edges, [(0, 8, 17, 1), (0, 8, 17, 0), (0, 8, 18, 1),
+                          (1, 10, 18, 1), (1, 10, 18, 0), (1, 2, 12, 1),
+                          (0, 6, 17, 1)], [0, 1])]
+    for rc in ([0, 0], [1, 1]):
+        cases.append(case(cross, [(0, 7, 18, 1), (0, 7, 18, 0),
+                                  (1, 0, 11, 1), (1, 0, 11, 0)], rc))
+    refs = [bytes(_cpg_seq(rng, int(rng.integers(60, 120))))
+            for _ in range(3)]
+    items = []
+    for _ in range(24):
+        rd = int(rng.integers(0, 3))
+        L = len(refs[rd])
+        ss = int(rng.integers(0, L - k - 2))
+        se = int(rng.integers(ss + k - 1, min(ss + 37, L - 1)))
+        items.append((rd, ss, se, int(rng.integers(0, 2))))
+    cases.append(case(refs, items, [0, 1, 1]))
+    ends = [b"GCGTACGATTCGCG", b"ATCGGCATTACG", b"CGATTCGACGTAGC"]
+    items = [(0, 0, 11, m) for m in (0, 1)] + [(2, 2, 13, m) for m in (0, 1)]
+    items += [(1, 0, 11, 1), (2, 0, 13, 1)]
+    for sentinel in (True, False):
+        for rc in ([0, 0, 0], [1, 1, 1]):
+            cases.append(case(ends, items, rc, sentinel))
+    return cases

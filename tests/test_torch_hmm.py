@@ -6,7 +6,14 @@ clips both allowed and not:
 - the Pallas scorer hmm_forward_pallas in interpret mode, at SEG=32 and
   SEG=128 (one program of 16 rows each);
 - the XLA scan hmm.hmm_forward_packed, for windows wider than 128 k-mers;
-- the oracle hmm_ref.profile_hmm_score (hmm.c semantics, f64 sums).
+- the oracle hmm_ref.profile_hmm_score (hmm.c semantics, f64 sums);
+- the whole fused scorer: the port's hmm_meta.hmm_forward_meta_plain
+  (window metadata in, scores out) against the JAX
+  hmm_meta.hmm_forward_meta in interpret mode.
+
+And on the host: the launch order of the fused kernel (narrow windows
+first, two to a warp) covers every window once and hands the scores
+back in the caller's order.
 
 The XLA scan solves the KMER_SKIP chain by renormalising every prefix by
 the window's global max in f32; where a window's terms span more than
@@ -23,7 +30,7 @@ import torch
 from f5c_tpu.constants import HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP
 from f5c_tpu.models import builtin_model
 from f5c_tpu_torch import synthetic
-from f5c_tpu_torch.ops import hmm, hmm_cuda
+from f5c_tpu_torch.ops import hmm, hmm_cuda, hmm_meta
 
 ARGS = ("ranks", "n_km", "ev_pool", "ev_start", "stride", "n_ev", "scale",
         "shift", "var", "lp_stay", "lp_step", "level_mean", "level_stdv",
@@ -34,8 +41,17 @@ WINDOW = ("n_km", "ev_start", "stride", "n_ev", "scale", "shift", "var",
 
 def _port(x, allow_pre, allow_post):
     t = [torch.from_numpy(np.array(x[k])) for k in ARGS]
-    return hmm_cuda.hmm_forward(*t, allow_pre=allow_pre,
-                                allow_post=allow_post).numpy()
+    return hmm.hmm_forward_plain(*t, allow_pre=allow_pre,
+                                 allow_post=allow_post).numpy()
+
+
+def _tensors(x):
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            if isinstance(v, np.ndarray) else v for k, v in x.items()}
+
+
+META_ARGS = ("meta", "packed_ref", "read_tab", "ev_pool", "level_mean",
+             "level_stdv", "level_log_stdv", "k")
 
 
 def _close(got, want):
@@ -131,3 +147,56 @@ def test_plain_matches_oracle(allow):
         lp_stay=lp_stay, lp_step=lp_step, level_mean=model.level_mean,
         level_stdv=model.level_stdv, level_log_stdv=model.level_log_stdv)
     _close(_port(x, allow, allow), np.array(want))
+
+
+def test_meta_plain_matches_jax_meta_interpret():
+    """One synthetic meta batch (64 windows of <= 32 k-mers at SEG=32, one
+    Pallas program; a CpG-rich random reference, forward and reverse
+    reads, both meth values, window-edge CpGs; soft clips on, where the
+    JAX scorer is exact): the port's fused plain version against the JAX
+    build_inputs + Pallas scorer."""
+    from f5c_tpu.ops.hmm_meta import hmm_forward_meta
+
+    model = builtin_model("dna_r9_cpg")
+    rng = np.random.default_rng(21)
+    x = synthetic.hmm_meta_windows(rng, rng.integers(1, 33, 64), model,
+                                   ordered=False)
+    t = _tensors(x)
+    got = hmm_meta.hmm_forward_meta_plain(*(t[k] for k in META_ARGS))
+    want = hmm_forward_meta(*(x[k] for k in META_ARGS[:-1]), SEG=32,
+                            k=x["k"], use_i16=True, interpret=True)
+    _close(got.numpy(), np.asarray(want).reshape(-1))
+
+
+def test_window_order_and_class_split():
+    """order_windows is a permutation with the narrow class (<= 16
+    k-mers, empty windows included) first, each class by event count,
+    longest first; launch_shape counts its warps; scores of the launch
+    order, put back through the order, equal the caller-order scores."""
+    rng = np.random.default_rng(22)
+    n_km = rng.integers(-4, 80, 300)
+    n_ev = rng.integers(1, 200, 300)
+    order, n_narrow = hmm_cuda.order_windows(n_km, n_ev)
+    np.testing.assert_array_equal(np.sort(order), np.arange(300))
+    assert n_narrow == int((n_km <= hmm_cuda.NARROW).sum())
+    km, ev = n_km[order], n_ev[order]
+    assert (km[:n_narrow] <= hmm_cuda.NARROW).all()
+    assert (km[n_narrow:] > hmm_cuda.NARROW).all()
+    for cls in (ev[:n_narrow], ev[n_narrow:]):
+        assert (np.diff(cls) <= 0).all()
+    shape = hmm_cuda.launch_shape(km, ev, n_narrow)
+    assert shape["warps"] == (n_narrow + 1) // 2 + 300 - n_narrow
+    assert shape["windows"] == 300 and shape["narrow"] == n_narrow
+
+    model = builtin_model("dna_r9_cpg")
+    x = synthetic.hmm_meta_windows(rng, [3, 40, 0, 16, 17, 1, 33, 9],
+                                   model, ordered=False)
+    order, n_narrow = hmm_cuda.order_windows(x["n_km"], x["n_ev"])
+    t = _tensors(x)
+    want = hmm_cuda.hmm_forward_meta(*(t[k] for k in META_ARGS)).numpy()
+    ordered = dict(t, meta=t["meta"][torch.from_numpy(order)])
+    got = np.empty_like(want)
+    got[order] = hmm_cuda.hmm_forward_meta(
+        *(ordered[k] for k in META_ARGS), n_narrow=n_narrow).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isneginf(want[2]) and np.isfinite(np.delete(want, 2)).all()

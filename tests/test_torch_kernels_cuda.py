@@ -2,10 +2,12 @@
 card (csrc/abea.cu, csrc/hmm.cu; built with nvcc at first use).
 
 ABEA must be bit-identical (trace, band placement, start event, walk
-length and bytes); the HMM forward scores agree to ops/hmm.py's stated
-f32 tolerance.  Without a CUDA device every test here skips; run them on
-the card with ``python -m pytest tests/test_torch_kernels_cuda.py``; the
-windowed ABEA kernels of csrc/abea_ultra.cu are held to the same bits.
+length and bytes); the fused HMM forward scores (window metadata in)
+agree to ops/hmm.py's stated f32 tolerance, and the ranks its prologue
+computes (the rank probe) equal build_inputs' bit for bit.  Without a
+CUDA device every test here skips; run them on the card with ``python -m
+pytest tests/test_torch_kernels_cuda.py``; the windowed ABEA kernels of
+csrc/abea_ultra.cu are held to the same bits.
 """
 
 import numpy as np
@@ -14,7 +16,7 @@ import torch
 
 from f5c_tpu_torch.models import builtin_model
 from f5c_tpu_torch import synthetic
-from f5c_tpu_torch.ops import abea, abea_cuda, hmm, hmm_cuda
+from f5c_tpu_torch.ops import abea, abea_cuda, hmm, hmm_cuda, hmm_meta
 
 pytestmark = pytest.mark.needs_cuda
 
@@ -58,24 +60,34 @@ def test_abea_kernels_match_plain(cuda):
     assert int(want[1].min()) > 0
 
 
+HMM_META = ("meta", "packed_ref", "read_tab", "ev_pool", "level_mean",
+            "level_stdv", "level_log_stdv")
+
+
+def _hmm_meta_case(x, cuda, allow_pre=True, allow_post=True):
+    """The fused kernel on a synthetic.hmm_meta_windows batch, in launch
+    order and with every window on a warp of its own, against the plain
+    version."""
+    t = _on(x, cuda)
+    args = [t[k] for k in HMM_META] + [x["k"]]
+    allow = dict(allow_pre=allow_pre, allow_post=allow_post)
+    want = hmm_meta.hmm_forward_meta_plain(*args, **allow)
+    for n_narrow in {x["n_narrow"], 0}:
+        got = hmm_cuda.hmm_forward_meta(*args, n_narrow=n_narrow,
+                                        max_km=x["max_km"], **allow)
+        torch.cuda.synchronize()
+        assert torch.isfinite(want).all()
+        torch.testing.assert_close(got, want, rtol=hmm.RTOL, atol=hmm.ATOL)
+
+
 @pytest.mark.parametrize("allow_pre,allow_post", [(True, True),
                                                   (False, False)])
 def test_hmm_kernel_matches_plain(cuda, allow_pre, allow_post):
     model = builtin_model("dna_r9_cpg")
     rng = np.random.default_rng(12)
     n_kmers = [1, 5, 17, 31, 32, 33, 64, 100, 128, 129, 200, 300]
-    x = _on(synthetic.hmm_windows(rng, n_kmers, model), cuda)
-    args = [x[k] for k in ("ranks", "n_km", "ev_pool", "ev_start", "stride",
-                           "n_ev", "scale", "shift", "var", "lp_stay",
-                           "lp_step", "level_mean", "level_stdv",
-                           "level_log_stdv")]
-    got = hmm_cuda.hmm_forward(*args, allow_pre=allow_pre,
-                               allow_post=allow_post)
-    want = hmm.hmm_forward_plain(*args, allow_pre=allow_pre,
-                                 allow_post=allow_post)
-    torch.cuda.synchronize()
-    assert torch.isfinite(want).all()
-    torch.testing.assert_close(got, want, rtol=hmm.RTOL, atol=hmm.ATOL)
+    x = synthetic.hmm_meta_windows(rng, n_kmers, model)
+    _hmm_meta_case(x, cuda, allow_pre, allow_post)
 
 
 @pytest.mark.parametrize("n_kmers", [[600, 20], [2500], [5000]])
@@ -84,16 +96,43 @@ def test_hmm_kernel_wide_windows(cuda, n_kmers):
     block (the opt-in attribute), then 2 and 1 warps per block."""
     model = builtin_model("dna_r9_cpg")
     rng = np.random.default_rng(13)
-    x = _on(synthetic.hmm_windows(rng, n_kmers, model), cuda)
-    args = [x[k] for k in ("ranks", "n_km", "ev_pool", "ev_start", "stride",
-                           "n_ev", "scale", "shift", "var", "lp_stay",
-                           "lp_step", "level_mean", "level_stdv",
-                           "level_log_stdv")]
-    got = hmm_cuda.hmm_forward(*args)
-    want = hmm.hmm_forward_plain(*args)
-    torch.cuda.synchronize()
-    assert torch.isfinite(want).all()
-    torch.testing.assert_close(got, want, rtol=hmm.RTOL, atol=hmm.ATOL)
+    x = synthetic.hmm_meta_windows(rng, n_kmers, model)
+    _hmm_meta_case(x, cuda)
+
+
+def test_hmm_kernel_marks_a_wrong_class_split(cuda):
+    """A window the launch puts in too narrow a class (a narrow slot, or
+    past ``max_km``) scores NaN, and every other window its score."""
+    model = builtin_model("dna_r9_cpg")
+    x = synthetic.hmm_meta_windows(np.random.default_rng(16),
+                                   [8, 12, 20, 100], model)
+    t = _on(x, cuda)
+    args = [t[k] for k in HMM_META] + [x["k"]]
+    want = hmm_meta.hmm_forward_meta_plain(*args)
+    assert x["n_narrow"] == 2
+    for n_narrow, max_km, too_wide in ((4, 100, x["n_km"] > 16),
+                                       (2, 40, x["n_km"] > 64)):
+        got = hmm_cuda.hmm_forward_meta(*args, n_narrow=n_narrow,
+                                        max_km=max_km)
+        torch.cuda.synchronize()
+        bad = torch.from_numpy(too_wide).to(cuda)
+        assert torch.isnan(got[bad]).all()
+        torch.testing.assert_close(got[~bad], want[~bad], rtol=hmm.RTOL,
+                                   atol=hmm.ATOL)
+
+
+def test_hmm_rank_probe_matches_build_inputs(cuda):
+    """The kernel's in-prologue k-mer ranks, bit for bit build_inputs', on
+    the cases of tests/test_torch_ranks.py and windows at both ends of
+    the reference concat (with and without its zero sentinel)."""
+    k = builtin_model("dna_r9_cpg").k
+    for c in synthetic.rank_cases(np.random.default_rng(15), k):
+        t = _on(c, cuda)
+        args = (t["meta"], t["packed_ref"], t["read_tab"])
+        got = hmm_cuda.hmm_window_ranks(*args, k, c["kw"])
+        want = hmm_meta.build_inputs(*args, k=k, kw=c["kw"])[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def _bits(t):

@@ -116,3 +116,30 @@ def test_random_windows():
         se = int(rng.integers(ss + K - 1, min(ss + 37, L - 1)))
         items.append((rd, ss, se, int(rng.integers(0, 2))))
     _run_case(refs, items, read_rc=[0, 1, 1])
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_rank_probe_cases_match_jax(case):
+    """The rank probe's cases (synthetic.rank_cases: the cases above, and
+    windows at both ends of the concat, with and without the zero
+    sentinel, where the rank planes wrap): the probe's CPU path (the
+    port's build_inputs) == the JAX build_inputs, bit for bit."""
+    from f5c_tpu.ops import hmm_meta as jax_meta
+
+    from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.ops import hmm_cuda
+
+    SEG = 32
+    cases = synthetic.rank_cases(np.random.default_rng(15), K)
+    assert len(cases) == 8
+    c = cases[case]
+    n = c["meta"].shape[0]
+    meta = np.zeros((-(-n // 4) * 4, 16), np.uint8)   # whole SEG=32 rows
+    meta[:n] = c["meta"]
+    got = hmm_cuda.hmm_window_ranks(
+        torch.from_numpy(meta), torch.from_numpy(c["packed_ref"]),
+        torch.from_numpy(c["read_tab"]), K, SEG).numpy()
+    want = jax_meta.build_inputs(meta, c["packed_ref"], c["read_tab"],
+                                 SEG=SEG, k=K, use_i16=False)[0]
+    np.testing.assert_array_equal(got, np.asarray(want).reshape(-1, SEG))
+    assert c["kw"] <= SEG and (got[:n, 0] > 0).any()
