@@ -19,20 +19,37 @@ Phases (each prints one line; any failure raises and exits nonzero):
    tests/test_torch_ranks.py, one read of ~5,000 bands in windows of
    1,000, and one long read -- a chain of ~420 tiles of the fill and the
    walk -- among 40 short ones, held to the plain versions at two of its
-   windows);
+   windows); the event detector (K9) bit for bit its plain version and
+   native.detect_events on the golden signals and on synthetic DNA (tiny
+   values whose prefix sums round, the densest pattern) and RNA signals;
+   the chunk Viterbi (K8) bit for bit its plain version and, chunk by
+   chunk, the host DP (native.viterbi_chunk_spec) on a synthetic round,
+   with its movement tables in shared memory and all in global memory;
 4. golden gates: ``f5c_tpu_torch.cli.main([...])`` on tests/data/golden,
    against the vendored truth under f5c's tolerance |x - t| <= 0.1|t| +
    0.02: call-methylation (6 reads, 0 deviant rows against meth.exp, every
-   kernel of its path launched), the same with every read forced through
-   the windowed ABEA, and eventalign --summary (0 deviant rows against
-   eventalign.exp.gz and eventalign.summary.exp);
+   kernel of its path launched, the events detected on the card with
+   --events-engine device; auto is host), the same bytes with the host
+   event detector, the same with every read
+   forced through the windowed ABEA, and eventalign --summary (0 deviant
+   rows against eventalign.exp.gz and eventalign.summary.exp) with the
+   native engine and with F5C_TPU_EA_ENGINE=device (the same bytes; every
+   round's chunks held to the plain version and to the host DP, one round
+   again with its tables in global memory); resquiggle (TSV and PAF) on
+   the card against the port on the CPU, byte for byte;
 5. scale run: the golden set replicated to 510 reads (one batch of f5c's
-   default -K 512) through call-methylation, twice warm; every copy's
-   rows within tolerance of meth.exp; reads/s and stage times; then each
-   kernel against its plain version on the launches of that run, timed
-   with CUDA events at those shapes (the HMM with its launch's window
-   classes, warp-steps, and the time of the unfused input assembly
-   build_inputs that the kernel replaces);
+   default -K 512) through call-methylation, twice warm with each events
+   engine (host, device, host, device); every copy's rows within
+   tolerance of meth.exp; reads/s and stage times; eventalign on the same
+   reads with the native and the device engine (walls, stage times, the
+   probes that decide auto; every round of the last device run held to
+   the plain version and the host DP); then each kernel against its
+   plain version on the launches of the last run (the chunk Viterbi at
+   that eventalign run's largest round), timed with CUDA events at those
+   shapes (the event detector and the chunk Viterbi also without their
+   wrappers' host work; the HMM with its launch's window classes,
+   warp-steps, and the time of the unfused input assembly build_inputs
+   that the kernel replaces);
 6. ultra run: 4 synthetic reads of 100-300 kb (datasets.ultra_dataset)
    through call-methylation and eventalign at the default settings, where
    every read takes the windowed ABEA, and again with the trace budget
@@ -41,25 +58,33 @@ Phases (each prints one line; any failure raises and exits nonzero):
    kernels held bit for bit to their plain versions, and timed, at two
    windows of the windowed run (the last one, from band ~786k, and a full
    one of 65,536 bands x 4 reads), and the HMM launches of that run held
-   to theirs; the unchunked kernels timed.
+   to theirs; the event detector held to native.detect_events and its
+   plain version on the 4 reads and timed; the unchunked kernels timed.
 
 It prints a JSON line of the kernels (launches on the main path, max
-abs error against the plain version, ms, plain ms, and the roofline bound
+abs error against the plain version, ms (for K8 and K9 the kernels
+alone, with the whole wrapper call as wrapper_ms), plain ms, and the
+roofline bound
 of the timed launch: bytes each input read once and each output written
-once over 3.35 TB/s, or f32 operations over 67 TFLOP/s, whichever is
-larger), the card's name and power limit, and last ``{"ok": true,
+once over 3.35 TB/s, f32 operations over 67 TFLOP/s or f64 operations
+over 34 TFLOP/s, whichever is largest), the card's name and power limit,
+and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
 repository, it fails before printing results; it fails too if the JAX
 package or jax was imported.
 
-``--profile`` runs only phases 1-2, then golden x85 (call-methylation)
-and phase 6's four configurations, each warm three times and once under
-torch.profiler: walls, the card's busy time and share of the wall,
-device ms and launches per kernel.
+``--profile`` runs only phases 1-2, then golden x85 (call-methylation
+with each events engine in 10 warm pairs, the order alternating, then
+each once under torch.profiler; eventalign with the native and the
+device engine) and phase 6's four configurations (and windowed
+call-methylation with host events), the others each warm three times and
+once under torch.profiler: walls, the card's busy time and share of the
+wall, device ms and launches per kernel.
 """
 
 from __future__ import annotations
 
+import filecmp
 import json
 import os
 import re
@@ -76,13 +101,25 @@ EA_FLOAT_COLS = (6, 7, 8, 10, 11, 12)    # tests/test_golden_e2e.py:104-125
 SUMMARY_FLOAT_COLS = (9, 10, 11, 12, 13)
 FORCE_BUDGET, FORCE_WIN = 1_000_000, 300  # every golden read windowed
 SYNTH_WIN = 1000
+EVENTS_PAIRS = 10           # --profile: golden x85 host/device events pairs
+DEVICE_EVENTS = ("--events-engine", "device")   # auto is host
 MIX_LONG, MIX_WIN = 20_000, 4096   # the long read's k-mers; windows
 # the roofline of one H100 SXM (NVIDIA's datasheet): HBM bytes/s
 # and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 ABEA_CELL_OPS = 13   # f32 ops of a band cell: emission 5, scores 6, max 2
 HMM_CELL_OPS = 55    # f32 ops (exp/log as one) of an HMM (k-mer, event) cell
+# event detection, per sample: the two prefix sums (2 f64 adds, 1 f32
+# square) and two t-stat tracks (10 f64 and 8 f32 operations each), and
+# the peak scan's ~4 f32 differences; per event 2 f64 and 5 f32 (tstat_at,
+# peak_detector, f5c_events_from_peaks)
+EV_F64_PER_SAMPLE, EV_F32_PER_SAMPLE = 22, 21
+EV_F64_PER_EVENT, EV_F32_PER_EVENT = 2, 5
+# f32 ops of a Viterbi (k-mer, event) cell: emission 6, MATCH 5 adds and 4
+# maxes, BAD_EVENT 2 adds and 1 max, KMER_SKIP 2 adds, 1 max, 3 more
+VIT_CELL_OPS = 24
 KERNELS = {
     "abea_fill": ("f5c_tpu_torch/csrc/abea.cu", "f5c_tpu/ops/abea_ring.py:69"),
     "abea_walk": ("f5c_tpu_torch/csrc/abea.cu",
@@ -93,10 +130,14 @@ KERNELS = {
                          "f5c_tpu/ops/abea_ultra.py:49"),
     "abea_walk_window": ("f5c_tpu_torch/csrc/abea_ultra.cu",
                          "f5c_tpu/ops/abea_ultra.py:306"),
+    "events": ("f5c_tpu_torch/csrc/events.cu",
+               "f5c_tpu/ops/events_device.py:272"),
+    "viterbi": ("f5c_tpu_torch/csrc/viterbi.cu", "f5c_tpu/ops/hmm.py:517"),
 }
 # the wrapper of a kernel where its name differs (the fused HMM kernel
 # counts its launches as hmm_forward)
-WRAPPERS = {"hmm_forward": "hmm_forward_meta"}
+WRAPPERS = {"hmm_forward": "hmm_forward_meta", "events": "detect_events",
+            "viterbi": "viterbi_rounds"}
 HMM_META = ("meta", "packed_ref", "read_tab", "ev_pool", "level_mean",
             "level_stdv", "level_log_stdv")
 
@@ -159,23 +200,35 @@ class Spy:
             setattr(mod, name, fn)
 
 
-def run_cli(paths: dict, out: str, summary: str | None = None):
+def run_cli(paths: dict, out: str, summary: str | None = None,
+            extra=(), ea_engine: str | None = None):
     """One call-methylation run through the CLI, or with ``summary`` one
-    eventalign --summary run; returns (wall seconds, processed reads,
+    eventalign --summary run (with ``ea_engine`` as F5C_TPU_EA_ENGINE);
+    ``extra`` are more options; returns (wall seconds, processed reads,
     stage-seconds line)."""
     from f5c_tpu_torch import cli
 
     argv = ["--device", "cuda", "--min-mapq", "0", "-b", paths["bam"], "-g",
             paths["genome"], "-r", paths["reads"], "--slow5", paths["slow5"],
-            "-o", out]
+            "-o", out, *extra]
     if summary is None:
         argv = ["call-methylation", "--meth-out-version", "1", *argv]
     else:
         argv = ["eventalign", "--summary", summary, *argv]
-    with CapturedStderr() as cap:
-        t0 = time.time()
-        rc = cli.main(argv)
-        wall = time.time() - t0
+    saved = os.environ.get("F5C_TPU_EA_ENGINE")
+    if ea_engine is not None:
+        os.environ["F5C_TPU_EA_ENGINE"] = ea_engine
+    try:
+        with CapturedStderr() as cap:
+            t0 = time.time()
+            rc = cli.main(argv)
+            wall = time.time() - t0
+    finally:
+        if ea_engine is not None:
+            if saved is None:
+                os.environ.pop("F5C_TPU_EA_ENGINE", None)
+            else:
+                os.environ["F5C_TPU_EA_ENGINE"] = saved
     if rc != 0:
         raise RuntimeError(f"{argv[0]} exited {rc}")
     processed = int(cap.text.split("processed: ")[1].split(";")[0])
@@ -262,7 +315,8 @@ def compare_launches(spy_calls, torch):
     ABEA must be, the HMM must be within tolerance, and its rank probe,
     "hmm_ranks", bit-identical)."""
     from f5c_tpu_torch.ops import (abea, abea_cuda, abea_ultra,
-                                   abea_ultra_cuda, hmm_cuda)
+                                   abea_ultra_cuda, events_cuda,
+                                   events_device, hmm, viterbi_cuda)
 
     err = {}
     for args, kw in spy_calls.get("abea_fill", ()):
@@ -287,12 +341,109 @@ def compare_launches(spy_calls, torch):
         want = abea_ultra.walk_window_plain(*args, **kw)
         err["abea_walk_window"] = max(err.get("abea_walk_window", 0),
                                       _int_err(got, want))
+    for args, kw in spy_calls.get("events", ()):
+        got = events_cuda.detect_events(*args, **kw)
+        want = events_device.detect_events_plain(*args, **kw)
+        err["events"] = max(err.get("events", 0), _int_err(got, want))
+    for args, kw in spy_calls.get("viterbi", ()):
+        got = viterbi_cuda.viterbi_rounds(*args, **kw)
+        want = hmm.viterbi_rounds_plain(*args[:9])
+        err["viterbi"] = max(err.get("viterbi", 0), _int_err(got, want))
     for name in ("abea_fill", "abea_walk", "abea_fill_window",
-                 "abea_walk_window", "hmm_ranks"):
+                 "abea_walk_window", "hmm_ranks", "events", "viterbi"):
         if err.get(name, 0) != 0:
             raise AssertionError(f"{name}: kernel differs from plain "
                                  f"(max abs err {err[name]})")
     return err
+
+
+def hold_native(spy_calls, model) -> dict:
+    """Each recorded call of the event detector re-run and held to
+    native.detect_events read by read, and each recorded Viterbi round to
+    the host DP chunk by chunk (native.viterbi_chunk_spec), bit for bit.
+    Returns {"events": reads, "viterbi": chunks} checked."""
+    import numpy as np
+
+    from f5c_tpu_torch import native
+    from f5c_tpu_torch.ops import events_cuda, hmm, viterbi_cuda
+
+    n = {"events": 0, "viterbi": 0}
+    for args, kw in spy_calls.get("events", ()):
+        ev_off, *outs = (t.cpu().numpy() for t in
+                         events_cuda.detect_events(*args, **kw))
+        pa, off = args[0].cpu().numpy(), args[1].cpu().numpy()
+        for i in range(off.shape[0] - 1):
+            et = native.detect_events(pa[off[i]:off[i + 1]], rna=args[2])
+            a, b = ev_off[i], ev_off[i + 1]
+            if any(o[a:b].tobytes() != w.tobytes() for o, w in zip(
+                    outs, (et.start, et.length, et.mean, et.stdv))):
+                raise AssertionError(f"events differ from native.detect_"
+                                     f"events on read {i} of a launch")
+            n["events"] += 1
+    tables = [np.asarray(t, np.float32) for t in (
+        model.level_mean, model.level_stdv, model.level_log_stdv)]
+    for args, kw in spy_calls.get("viterbi", ()):
+        movs, ns = (t.cpu().numpy() for t in
+                    viterbi_cuda.viterbi_rounds(*args, **kw))
+        si, sf = args[0].cpu().numpy(), args[1].cpu().numpy()
+        rank_pool, ev_pool = args[3].cpu().numpy(), args[4].cpu().numpy()
+        for i in range(si.shape[0]):
+            want = native.viterbi_chunk_spec(rank_pool, si[i], sf[i],
+                                             args[2], ev_pool, *tables)
+            if not np.array_equal(hmm.unpack_movements(movs[i], int(ns[i])),
+                                  want):
+                raise AssertionError(f"viterbi chunk {i} differs from the "
+                                     "host DP")
+            n["viterbi"] += 1
+    return n
+
+
+def synthetic_k8k9(torch, dev) -> dict:
+    """K9 on synthetic.event_signals (DNA of a few lengths, tiny values,
+    the densest pattern; RNA) and the golden signals, and K8 on a
+    synthetic round of 300 mixed chunks, once as the wrapper places the
+    movement tables and once with every table in global memory: each held
+    to its plain version and to the host code.  Returns fields to
+    print."""
+    import numpy as np
+
+    from f5c_tpu_torch import datasets, synthetic
+    from f5c_tpu_torch.io.slow5 import Slow5File
+    from f5c_tpu_torch.models import builtin_model
+    from f5c_tpu_torch.ops import hmm, viterbi_cuda
+
+    nuc = builtin_model("dna_r9_nucleotide")
+    rng = np.random.default_rng(2031)
+    sig = synthetic.event_signals(rng, nuc, builtin_model(
+        "rna_r9_nucleotide"))
+    f = Slow5File(datasets.GOLDEN_SIGNALS_ZLIB)
+    calls = {"events": [], "viterbi": []}
+    for rna, pas in ((False, [f.get(r).to_pa() for r in f.read_ids()]
+                      + sig["dna"]), (True, sig["rna"])):
+        off = np.zeros(len(pas) + 1, np.int64)
+        np.cumsum([p.shape[0] for p in pas], out=off[1:])
+        calls["events"].append(((torch.from_numpy(np.concatenate(pas)).to(
+            dev), torch.from_numpy(off).to(dev), rna), {}))
+    x = synthetic.viterbi_round(rng, nuc, 300)
+    tables = [torch.as_tensor(np.asarray(t, np.float32), device=dev)
+              for t in (nuc.level_mean, nuc.level_stdv, nuc.level_log_stdv)]
+    vargs = (torch.from_numpy(x["spec_i32"]).to(dev),
+             torch.from_numpy(x["spec_f32"]).to(dev), hmm.viterbi_consts(),
+             torch.from_numpy(x["rank_pool"]).to(dev),
+             torch.from_numpy(x["ev_pool"]).to(dev), *tables,
+             hmm.viterbi_max_path(x["spec_i32"][:, 2], x["spec_i32"][:, 5]))
+    calls["viterbi"].append((vargs, {}))
+    err = compare_launches(calls, torch)
+    held = hold_native(calls, nuc)
+    cap = viterbi_cuda.TABLE_SMEM_MAX
+    viterbi_cuda.TABLE_SMEM_MAX = 1       # every table in global memory
+    try:
+        err_g = compare_launches({"viterbi": calls["viterbi"]}, torch)
+        held_g = hold_native({"viterbi": calls["viterbi"]}, nuc)
+    finally:
+        viterbi_cuda.TABLE_SMEM_MAX = cap
+    return dict(errors=err, global_tables=err_g, native_reads=held["events"],
+                native_chunks=held["viterbi"] + held_g["viterbi"])
 
 
 def hold_hmm(torch, args, kw):
@@ -642,7 +793,8 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
             # the measured runs
             spy = Spy(kernel_mods)
             try:
-                run_cli(data, os.path.join(tmp, f"ultra_{mode}_warm.tsv"))
+                run_cli(data, os.path.join(tmp, f"ultra_{mode}_warm.tsv"),
+                        extra=DEVICE_EVENTS)
             finally:
                 spy.close()
             if mode == "windowed":
@@ -658,6 +810,7 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                     {"hmm_forward": spy.calls["hmm_forward"]}, torch))
                 kernel_ms.update(hmm_launches=len(spy.calls["hmm_forward"]),
                                  hmm_max_abs_err=err["hmm_forward"])
+                kernel_ms.update(hold_ultra_events(torch, spy.calls["events"]))
             else:
                 kernel_ms.update(time_unchunked_kernels(torch, spy.calls))
             del spy
@@ -721,6 +874,35 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
     return runs["windowed", "meth"]["counts"], err, timings
 
 
+def hold_ultra_events(torch, calls) -> dict:
+    """The event detector's launch of the ultra run (the 4 reads' ~1.28 M
+    events) held to its plain version and to native.detect_events bit for
+    bit, and timed.  Returns fields to print."""
+    from f5c_tpu_torch.models import builtin_model
+    from f5c_tpu_torch.ops import _build, events_cuda, events_device
+
+    if len(calls) != 1:
+        raise AssertionError(f"{len(calls)} event launches in the ultra run")
+    args, kw = calls[0]
+    want, plain_ms = run_once(
+        torch, lambda: events_device.detect_events_plain(*args, **kw))
+    got = events_cuda.detect_events(*args, **kw)
+    if _int_err(got, want) != 0:
+        raise AssertionError("ultra events: kernel differs from plain")
+    held = hold_native({"events": calls}, builtin_model("dna_r9_nucleotide"))
+    ms = time_ms(torch, lambda: events_cuda.detect_events(*args, **kw), 3)
+    kern_ms = kernel_ms(torch, _build,
+                        lambda: events_cuda.detect_events(*args, **kw), 3)
+    off = args[1].cpu().numpy()
+    return dict(events_ms=kern_ms, events_wrapper_ms=ms,
+                events_plain_ms=plain_ms,
+                events_bound_ms=bound_of("events", args, kw, got)[0],
+                events_samples=int(off[-1]),
+                events_longest_read=int((off[1:] - off[:-1]).max()),
+                events_events=int(got[1].shape[0]),
+                events_vs_native_reads=held["events"])
+
+
 def run_once(torch, fn):
     """(fn(), its ms between CUDA events): one run of a plain version at a
     shape where it is too slow to repeat."""
@@ -747,15 +929,33 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_ms(torch, _build, fn, reps: int) -> float:
+    """The kernels' own ms per call of a wrapper that waits on the card:
+    the CUDA-event spans the wrapper records around its launches
+    (``_build.launch_spans``), summed, over ``reps`` warm calls."""
+    fn()
+    torch.cuda.synchronize()
+    _build.launch_spans = []
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in _build.launch_spans) / reps
+    finally:
+        _build.launch_spans = None
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None and hasattr(t, "element_size"))
 
 
-def roofline(nbytes: float, ops: float):
+def roofline(nbytes: float, ops: float, f64_ops: float = 0):
     """(bound ms, "bytes" or "operations"): the least time of the card for
-    this work."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    this work, the largest of its bytes, f32 and f64 operations over the
+    card's rates."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = max(ops / F32_OPS_PER_S, f64_ops / F64_OPS_PER_S)
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -786,6 +986,21 @@ def bound_of(name: str, args, kw, out):
         steps = int((out[0][:, 2] - args[3][:, 2]).long().sum())
         return roofline(5 * steps + -(-steps // 4) + 2 * _nbytes(args[3]),
                         0)
+    if name == "events":
+        samples, events = args[0].numel(), out[1].numel()
+        return roofline(_nbytes(args[0], args[1], *out),
+                        EV_F32_PER_SAMPLE * samples
+                        + EV_F32_PER_EVENT * events,
+                        EV_F64_PER_SAMPLE * samples
+                        + EV_F64_PER_EVENT * events)
+    if name == "viterbi":
+        spec = kw.get("host_spec")
+        spec = args[0].cpu().numpy() if spec is None else spec
+        nk, ne = spec[:, 2].astype(float), spec[:, 5].astype(float)
+        # specs, each chunk's ranks and events and its model entries
+        # (mean, stdv, log stdv), once; movements and step counts out
+        inputs = _nbytes(args[0], args[1]) + 16 * nk.sum() + 4 * ne.sum()
+        return roofline(inputs + _nbytes(*out), VIT_CELL_OPS * (nk * ne).sum())
     raise KeyError(name)
 
 
@@ -837,15 +1052,21 @@ def profile_runs(torch, card, runner, datasets, reps: int = 3) -> None:
     per kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    def measure(data, out, summary, **fields):
-        run_cli(data, out, summary)
-        walls = [run_cli(data, out, summary)[0] for _ in range(reps)]
+    def measure(data, out, summary, events="auto", ea_engine=None,
+                n_warm=reps, **fields):
+        def run():
+            return run_cli(data, out, summary, ea_engine=ea_engine,
+                           extra=("--events-engine", events))
+
+        run()
+        res = [run() for _ in range(n_warm)]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall = run_cli(data, out, summary)[0]
+            wall = run()[0]
         busy, per = device_busy(torch, prof)
-        say("profile", **fields,
-            warm_walls_s=",".join(f"{w:.3f}" for w in walls),
+        say("profile", **fields, events=events, ea_engine=ea_engine,
+            warm_walls_s=",".join(f"{w:.3f}" for w, _, _ in res),
+            stages=" | ".join(st.replace(" ", ",") for _, _, st in res),
             profiled_wall_s=f"{wall:.3f}", busy_ms=f"{busy:.1f}",
             busy_share=f"{100 * busy / (1e3 * wall):.1f}%",
             kernels=json.dumps(per, separators=(",", ":")),
@@ -855,8 +1076,33 @@ def profile_runs(torch, card, runner, datasets, reps: int = 3) -> None:
         source = datasets.dataset(GOLDEN, slow5=datasets.GOLDEN_SIGNALS_ZLIB)
         scale = datasets.replicate_dataset(source, os.path.join(tmp, "x85"),
                                            COPIES)
-        measure(scale, os.path.join(tmp, "x85.tsv"), None, mode="golden_x85",
-                entry="meth")
+        # the events engines, warm, in EVENTS_PAIRS pairs whose order
+        # alternates, then each once under the profiler
+        out = os.path.join(tmp, "x85.tsv")
+        engines = ("host", "device")
+        walls = {e: [] for e in engines}
+        for e in engines:
+            run_cli(scale, out, extra=("--events-engine", e))
+        for i in range(EVENTS_PAIRS):
+            for e in engines if i % 2 == 0 else engines[::-1]:
+                walls[e].append(run_cli(scale, out,
+                                        extra=("--events-engine", e)))
+        for e in engines:
+            ws = sorted(w for w, _, _ in walls[e])
+            say("events_pairs", engine=e, pairs=EVENTS_PAIRS,
+                walls_s=",".join(f"{w:.3f}" for w, _, _ in walls[e]),
+                median_s=f"{(ws[len(ws) // 2 - 1] + ws[len(ws) // 2]) / 2:.3f}",
+                quartiles_s=f"{ws[len(ws) // 4]:.3f},{ws[3 * len(ws) // 4]:.3f}",
+                stages=" | ".join(st.replace(" ", ",")
+                                  for _, _, st in walls[e]),
+                card=card.replace(" ", "_"))
+        for e in engines:
+            measure(scale, out, None, events=e, n_warm=0, mode="golden_x85",
+                    entry="meth")
+        for engine in ("native", "device"):
+            out = os.path.join(tmp, "x85_ea.tsv")
+            measure(scale, out, out + ".summary", ea_engine=engine,
+                    mode="golden_x85", entry="eventalign")
         data = datasets.ultra_dataset(os.path.join(tmp, "ultra"), seed=2026)
         budget = runner.Pipeline.TRACE_BYTES_BUDGET
         for mode in ("windowed", "unchunked"):
@@ -866,12 +1112,17 @@ def profile_runs(torch, card, runner, datasets, reps: int = 3) -> None:
                 for cmd in ("meth", "eventalign"):
                     out = os.path.join(tmp, f"{mode}_{cmd}.tsv")
                     summary = out + ".summary" if cmd == "eventalign" else None
-                    measure(data, out, summary, mode=mode, entry=cmd)
+                    engines = (("host", "device") if mode == "windowed"
+                               and cmd == "meth" else ("auto",))
+                    for events in engines:
+                        measure(data, out, summary, events=events, mode=mode,
+                                entry=cmd)
             finally:
                 runner.Pipeline.TRACE_BYTES_BUDGET = budget
 
 
 def main(argv: list[str]) -> int:
+    import numpy as np
     import torch
 
     if argv not in ([], ["--profile"]):
@@ -886,9 +1137,11 @@ def main(argv: list[str]) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from f5c_tpu_torch import backend, datasets
+    from f5c_tpu_torch.models import builtin_model
     from f5c_tpu_torch.ops import (_build, abea, abea_cuda, abea_ultra_cuda,
-                                   hmm_cuda, hmm_meta)
-    from f5c_tpu_torch.pipeline import runner
+                                   events_cuda, events_device, hmm, hmm_cuda,
+                                   hmm_meta, viterbi_cuda)
+    from f5c_tpu_torch.pipeline import eventalign, runner
 
     # 1. probe
     card = card_line()
@@ -909,8 +1162,11 @@ def main(argv: list[str]) -> int:
         return 0
 
     counters = (abea_cuda.launches, hmm_cuda.launches,
-                abea_ultra_cuda.launches)
-    kernel_mods = [abea_cuda, hmm_cuda, abea_ultra_cuda]
+                abea_ultra_cuda.launches, events_cuda.launches,
+                viterbi_cuda.launches)
+    kernel_mods = [abea_cuda, hmm_cuda, abea_ultra_cuda, events_cuda,
+                   viterbi_cuda]
+    nuc = builtin_model("dna_r9_nucleotide")
 
     def reset_counts():
         for d in counters:
@@ -943,15 +1199,20 @@ def main(argv: list[str]) -> int:
         # 3. kernel vs plain: the golden reads' own launches + synthetic
         spy = Spy(kernel_mods)
         try:
-            run_cli(golden, os.path.join(tmp, "warmup.tsv"))
+            run_cli(golden, os.path.join(tmp, "warmup.tsv"),
+                    extra=DEVICE_EVENTS)
         finally:
             spy.close()
         err_golden = compare_launches(spy.calls, torch)
+        held_golden = hold_native(spy.calls, nuc)
         err_synth = compare_launches(synthetic_calls(torch, dev), torch)
         probed = rank_probe_cases(torch, dev)
+        k8k9 = synthetic_k8k9(torch, dev)
         torch.cuda.synchronize()
         say("kernel_vs_plain", golden=err_golden, synthetic=err_synth,
-            rank_probe_windows=probed)
+            rank_probe_windows=probed, golden_events_vs_native=held_golden,
+            events_fixed_reads=events_cuda.fixed_reads["events"])
+        say("k8k9_vs_plain_and_host", **k8k9)
 
         # 3b. the windowed ABEA: golden reads forced windowed + synthetic
         forced_windows()
@@ -988,64 +1249,196 @@ def main(argv: list[str]) -> int:
         # 4. golden gates through the kernels
         reset_counts()
         wall, processed, stages = run_cli(golden,
-                                          os.path.join(tmp, "golden.tsv"))
+                                          os.path.join(tmp, "golden.tsv"),
+                                          extra=DEVICE_EVENTS)
         counts = read_counts()
         bad = deviant_rows(os.path.join(tmp, "golden.tsv"), truth)
         say("golden", processed=processed, deviant_rows=bad,
             launches=counts, wall_s=f"{wall:.3f}")
         if (processed != 6 or bad != 0
                 or min(counts[k] for k in ("abea_fill", "abea_walk",
-                                           "hmm_forward")) == 0):
+                                           "hmm_forward", "events")) == 0):
             raise AssertionError("golden gate failed")
-        ea_out = os.path.join(tmp, "golden_ea.tsv")
-        ea_sum = os.path.join(tmp, "golden_ea.summary.tsv")
+        # the same run with the host event detector: the same bytes
         reset_counts()
-        wall, processed, _ = run_cli(golden, ea_out, summary=ea_sum)
-        counts = read_counts()
-        bad_ea = tolerant_bad(read_text(ea_out), read_text(
-            os.path.join(GOLDEN, "eventalign.exp.gz")), EA_FLOAT_COLS)
-        bad_sum = tolerant_bad(read_text(ea_sum), read_text(
-            os.path.join(GOLDEN, "eventalign.summary.exp")),
-            SUMMARY_FLOAT_COLS, norm_col=2)
-        say("golden_eventalign", processed=processed, deviant_rows=bad_ea,
-            summary_deviant_rows=bad_sum, launches=counts,
-            wall_s=f"{wall:.3f}", card=card.replace(" ", "_"))
-        if (processed != 6 or bad_ea != 0 or bad_sum != 0
-                or counts["abea_fill"] == 0 or counts["abea_walk"] == 0):
-            raise AssertionError("eventalign golden gate failed")
+        run_cli(golden, os.path.join(tmp, "golden_host.tsv"),
+                extra=("--events-engine", "host"))
+        same_host = filecmp.cmp(os.path.join(tmp, "golden.tsv"),
+                                os.path.join(tmp, "golden_host.tsv"),
+                                shallow=False)
+        say("golden_events_engines", byte_identical=same_host,
+            host_run_events_launches=read_counts()["events"])
+        if not same_host or read_counts()["events"] != 0:
+            raise AssertionError("golden: device and host events differ")
 
-        # 5. scale run: 510 reads, twice warm, the second one recorded
+        # eventalign: the native engine against the truth, then the device
+        # engine (every round through the Viterbi kernel): the same bytes
+        ea = {}
+        for engine in ("native", "device"):
+            ea_out = os.path.join(tmp, f"golden_ea_{engine}.tsv")
+            ea_sum = os.path.join(tmp, f"golden_ea_{engine}.summary.tsv")
+            reset_counts()
+            spy = Spy(kernel_mods) if engine == "device" else None
+            try:
+                wall, processed, _ = run_cli(golden, ea_out, summary=ea_sum,
+                                             ea_engine=engine)
+            finally:
+                if spy is not None:
+                    spy.close()
+            counts = read_counts()
+            bad_ea = tolerant_bad(read_text(ea_out), read_text(
+                os.path.join(GOLDEN, "eventalign.exp.gz")), EA_FLOAT_COLS)
+            bad_sum = tolerant_bad(read_text(ea_sum), read_text(
+                os.path.join(GOLDEN, "eventalign.summary.exp")),
+                SUMMARY_FLOAT_COLS, norm_col=2)
+            ea[engine] = (ea_out, ea_sum, counts)
+            say("golden_eventalign", engine=engine, processed=processed,
+                deviant_rows=bad_ea, summary_deviant_rows=bad_sum,
+                launches=counts, wall_s=f"{wall:.3f}",
+                card=card.replace(" ", "_"))
+            if (processed != 6 or bad_ea != 0 or bad_sum != 0
+                    or counts["abea_fill"] == 0 or counts["abea_walk"] == 0
+                    or (counts["viterbi"] > 0) != (engine == "device")):
+                raise AssertionError("eventalign golden gate failed")
+        vit_counts = ea["device"][2]
+        same_ea = all(filecmp.cmp(a, b, shallow=False) for a, b in zip(
+            ea["native"][:2], ea["device"][:2]))
+        vit_calls = spy.calls["viterbi"]
+        err_vit = compare_launches({"viterbi": vit_calls}, torch)
+        held_vit = hold_native({"viterbi": vit_calls}, nuc)
+        # the largest round again with its tables in global memory
+        big = max(vit_calls, key=lambda c: int(c[0][0].shape[0]))
+        cap = viterbi_cuda.TABLE_SMEM_MAX
+        viterbi_cuda.TABLE_SMEM_MAX = 1
+        try:
+            err_big = compare_launches({"viterbi": [big]}, torch)
+            held_big = hold_native({"viterbi": [big]}, nuc)
+        finally:
+            viterbi_cuda.TABLE_SMEM_MAX = cap
+        # the probes of the JAX rule for auto (device when a round's host
+        # DPs outlast two dispatches)
+        dispatch = eventalign.measured_dispatch_overhead(dev)
+        host_chunk = eventalign.measured_host_chunk_secs(nuc)
+        say("golden_eventalign_engines", byte_identical=same_ea,
+            rounds=len(vit_calls), chunks=held_vit["viterbi"],
+            vs_plain=err_vit, global_tables_round=dict(
+                chunks=held_big["viterbi"], vs_plain=err_big),
+            dispatch_probe_s=f"{dispatch:.6f}",
+            host_chunk_s=f"{host_chunk:.6f}",
+            jax_rule_reads_for_device=int(2 * dispatch / host_chunk) + 1)
+        if not same_ea:
+            raise AssertionError("eventalign: the device engine's bytes "
+                                 "differ from the native engine's")
+
+        # resquiggle on the card against the port on the CPU
+        from f5c_tpu_torch import cli
+
+        rq = {}
+        for device in ("cuda", "cpu"):
+            for fmt in ("tsv", "paf"):
+                out = os.path.join(tmp, f"rq_{device}.{fmt}")
+                reset_counts()
+                with CapturedStderr():
+                    t0 = time.time()
+                    rc = cli.main(["resquiggle", golden["reads"], "--slow5",
+                                   golden["slow5"], "--device", device,
+                                   "-o", out, *(["-c"] if fmt == "paf"
+                                                else []),
+                                   *(DEVICE_EVENTS if device == "cuda"
+                                     else ())])
+                    rq[device, fmt] = (out, time.time() - t0, read_counts())
+                if rc != 0:
+                    raise AssertionError(f"resquiggle {device} exited {rc}")
+        same_rq = {fmt: filecmp.cmp(rq["cuda", fmt][0], rq["cpu", fmt][0],
+                                    shallow=False) for fmt in ("tsv", "paf")}
+        rq_counts = rq["cuda", "tsv"][2]
+        say("resquiggle", byte_identical=same_rq,
+            rows=len(read_text(rq["cuda", "tsv"][0]).splitlines()) - 1,
+            wall_cuda_s=f"{rq['cuda', 'tsv'][1]:.3f}",
+            wall_cpu_s=f"{rq['cpu', 'tsv'][1]:.3f}", launches=rq_counts)
+        if (not all(same_rq.values()) or min(rq_counts[k] for k in (
+                "events", "abea_fill", "abea_walk")) == 0):
+            raise AssertionError("resquiggle on the card differs from the "
+                                 "CPU or skipped a kernel")
+
+        # 5. scale run: 510 reads, twice warm with each events engine in
+        # turns, the last (device events) run recorded
         scale = datasets.replicate_dataset(source, os.path.join(tmp, "x85"),
                                            COPIES)
         n_reads = 6 * COPIES
-        walls = []
-        for rep in range(2):
+        walls = {"host": [], "device": []}
+        engines = ("host", "device", "host", "device")
+        for rep, engine in enumerate(engines):
             out = os.path.join(tmp, f"scale{rep}.tsv")
             reset_counts()
-            spy = Spy(kernel_mods) if rep == 1 else None
+            spy = Spy(kernel_mods) if rep == len(engines) - 1 else None
             try:
-                wall, processed, stages = run_cli(scale, out)
+                wall, processed, stages = run_cli(
+                    scale, out, extra=("--events-engine", engine))
             finally:
                 if spy is not None:
                     spy.close()
             counts = {k: v for k, v in read_counts().items()
-                      if k in ("abea_fill", "abea_walk", "hmm_forward")}
+                      if k in ("abea_fill", "abea_walk", "hmm_forward",
+                               "events")}
             bad = deviant_rows(out, truth, copies=COPIES)
-            walls.append(wall)
-            say("scale", run=rep + 1, reads=processed, deviant_rows=bad,
-                wall_s=f"{wall:.3f}", reads_per_s=f"{n_reads / wall:.2f}",
+            walls[engine].append(wall)
+            say("scale", run=rep + 1, events_engine=engine, reads=processed,
+                deviant_rows=bad, wall_s=f"{wall:.3f}",
+                reads_per_s=f"{n_reads / wall:.2f}",
                 stages=stages.replace(" ", ","), launches=counts,
                 waves=f"{runner.Pipeline.WAVE}x{runner.Pipeline.INFLIGHT}",
                 card=card.replace(" ", "_"))
-            if processed != n_reads or bad != 0 or min(counts.values()) == 0:
+            if (processed != n_reads or bad != 0
+                    or (counts["events"] > 0) != (engine == "device")
+                    or min(counts[k] for k in ("abea_fill", "abea_walk",
+                                               "hmm_forward")) == 0):
                 raise AssertionError("scale run failed")
         err_scale = compare_launches(spy.calls, torch)
+        held_scale = hold_native({"events": spy.calls["events"]}, nuc)
+        # eventalign on the same 510 reads with each re-alignment engine;
+        # the last device run's rounds recorded
+        ea_scale = {}
+        ea_engines = ("native", "device", "native", "device")
+        for rep, engine in enumerate(ea_engines):
+            out = os.path.join(tmp, f"scale_ea_{engine}.tsv")
+            reset_counts()
+            ea_spy = Spy(kernel_mods) if rep == len(ea_engines) - 1 else None
+            try:
+                wall, processed, stages = run_cli(
+                    scale, out, summary=out + ".s", ea_engine=engine)
+            finally:
+                if ea_spy is not None:
+                    ea_spy.close()
+            ea_scale.setdefault(engine, []).append(wall)
+            say("scale_eventalign", engine=engine, reads=processed,
+                wall_s=f"{wall:.3f}", stages=stages.replace(" ", ","),
+                viterbi_launches=read_counts()["viterbi"],
+                card=card.replace(" ", "_"))
+        if not all(filecmp.cmp(os.path.join(tmp, "scale_ea_native.tsv" + x),
+                               os.path.join(tmp, "scale_ea_device.tsv" + x),
+                               shallow=False) for x in ("", ".s")):
+            raise AssertionError("scale eventalign: engines differ")
+        # every round of the device run held to the plain version and,
+        # chunk by chunk, to the host DP; its largest round is timed
+        scale_vit = ea_spy.calls["viterbi"]
+        err_vit_scale = compare_launches({"viterbi": scale_vit}, torch)
+        held_vit_scale = hold_native({"viterbi": scale_vit}, nuc)
+        big_scale = max(scale_vit, key=lambda c: int(c[0][0].shape[0]))
+        say("scale_eventalign_rounds", rounds=len(scale_vit),
+            chunks=held_vit_scale["viterbi"], vs_plain=err_vit_scale)
+        del ea_spy
 
         # kernel and plain times at the scale run's first (largest)
-        # launch; the window kernels are timed in phase 6
+        # launch (the chunk Viterbi at the largest round of the scale
+        # device-engine eventalign); the window kernels are timed in
+        # phase 6.  K9's and K8's wrappers wait on the card, so their
+        # kernels are timed apart from the wrappers too
         fill_a, fill_kw = spy.calls["abea_fill"][0]
         walk_a, walk_kw = spy.calls["abea_walk"][0]
         hmm_a, hmm_kw = spy.calls["hmm_forward"][0]
+        ev_a, ev_kw = spy.calls["events"][0]
+        vit_a, vit_kw = big_scale
         timed = {
             "abea_fill": (lambda: abea_cuda.abea_fill(*fill_a, **fill_kw),
                           lambda: abea.abea_fill_plain(*fill_a[:11])),
@@ -1054,6 +1447,12 @@ def main(argv: list[str]) -> int:
             "hmm_forward": (
                 lambda: hmm_cuda.hmm_forward_meta(*hmm_a, **hmm_kw),
                 lambda: hmm_meta.hmm_forward_meta_plain(*hmm_a)),
+            "events": (
+                lambda: events_cuda.detect_events(*ev_a, **ev_kw),
+                lambda: events_device.detect_events_plain(*ev_a, **ev_kw)),
+            "viterbi": (
+                lambda: viterbi_cuda.viterbi_rounds(*vit_a, **vit_kw),
+                lambda: hmm.viterbi_rounds_plain(*vit_a[:9])),
         }
         # the serial chains of the ABEA launch: the longest read's bands
         # (fill) and the longest walk's steps
@@ -1069,7 +1468,12 @@ def main(argv: list[str]) -> int:
                    for name, (kern, plain), (args, kw) in zip(
                        timed, timed.values(),
                        ((fill_a, fill_kw), (walk_a, walk_kw),
-                        (hmm_a, hmm_kw)))}
+                        (hmm_a, hmm_kw), (ev_a, ev_kw), (vit_a, vit_kw)))}
+        wrapper_ms = {}
+        for name in ("events", "viterbi"):
+            kern_ms = kernel_ms(torch, _build, timed[name][0], 20)
+            wrapper_ms[name] = timings[name][0]
+            timings[name] = (kern_ms, *timings[name][1:])
         # the unfused input assembly the HMM kernel replaces (K6: the
         # parent's torch ops before its forward kernel), at this launch
         k6_ms = time_ms(torch, lambda: hmm_meta.build_inputs(
@@ -1079,8 +1483,25 @@ def main(argv: list[str]) -> int:
         smsp = 4 * torch.cuda.get_device_properties(0).multi_processor_count
         ns_ws = (1e6 * timings["hmm_forward"][0] * smsp
                  / hmm_work["warp_steps"])
+        ev_n = ev_a[1].cpu().numpy()
+        vit_spec = vit_kw.get("host_spec")
+        say("timing_k8k9", card=card.replace(" ", "_"),
+            events_reads=int(ev_n.shape[0] - 1), events_samples=int(ev_n[-1]),
+            events_longest_read=int((ev_n[1:] - ev_n[:-1]).max()),
+            events_vs_native_reads=held_scale["events"],
+            viterbi_chunks=int(vit_spec.shape[0]),
+            viterbi_cells=int((vit_spec[:, 2].astype(np.int64)
+                               * vit_spec[:, 5]).sum()),
+            viterbi_longest_chain=int((vit_spec[:, 2] + 2 * vit_spec[:, 5])
+                                      .max()),
+            walls_host_events=[round(w, 3) for w in walls["host"]],
+            walls_device_events=[round(w, 3) for w in walls["device"]],
+            walls_ea_native=[round(w, 3) for w in ea_scale["native"]],
+            walls_ea_device=[round(w, 3) for w in ea_scale["device"]],
+            events_wrapper_ms=round(wrapper_ms["events"], 4),
+            viterbi_wrapper_ms=round(wrapper_ms["viterbi"], 4))
         say("timing", shapes=shapes, card=card.replace(" ", "_"),
-            best_reads_per_s=f"{n_reads / min(walls):.2f}",
+            best_reads_per_s=f"{n_reads / min(walls['device']):.2f}",
             fill_ns_per_band=f"{1e6 * timings['abea_fill'][0] / chain:.1f}",
             walk_ns_per_step=f"{1e6 * timings['abea_walk'][0] / steps:.1f}",
             hmm_ns_per_warp_step=f"{ns_ws:.1f}",
@@ -1090,7 +1511,8 @@ def main(argv: list[str]) -> int:
         # defaults) and unchunked (budget raised); the main path of the
         # window kernels is the windowed call-methylation run.  The
         # recorded calls are dropped first: they hold device memory.
-        del spy, synth_calls, timed, fill_a, walk_a, hmm_a
+        del (spy, synth_calls, timed, fill_a, walk_a, hmm_a, ev_a, vit_calls,
+             scale_vit, big_scale, vit_a)
         ultra_counts, err_ultra, ultra_timings = ultra_phase(
             tmp, torch, card, runner, datasets, kernel_mods, reset_counts,
             read_counts)
@@ -1098,18 +1520,25 @@ def main(argv: list[str]) -> int:
 
         errs = {name: max(e.get(name, 0) for e in (
             err_golden, err_synth, err_scale, err_golden_win,
-            err_synth_win, err_mixed, err_ultra)) for name in KERNELS}
+            err_synth_win, err_mixed, err_ultra, err_vit, err_big,
+            err_vit_scale, k8k9["errors"], k8k9["global_tables"]))
+            for name in KERNELS}
         kernels = []
         for name, (ms, plain_ms, bound_ms, bound_by) in timings.items():
             launches = (ultra_counts if name.endswith("_window")
+                        else vit_counts if name == "viterbi"
                         else counts)[name]
-            # no PyTorch call computes the ABEA fill, its walk or the HMM
-            # forward pass: library_ms is null
+            # no PyTorch call computes the ABEA fill, its walk, the HMM
+            # forward pass, event detection or the chunk Viterbi:
+            # library_ms is null
             kernels.append(dict(
                 name=name, route="cuda", source=KERNELS[name][0],
                 replaces=KERNELS[name][1], launches=launches,
                 max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+            if name in wrapper_ms:
+                # ms: the kernels alone; wrapper_ms: the whole call
+                kernels[-1]["wrapper_ms"] = wrapper_ms[name]
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "f5c_tpu"))

@@ -1,4 +1,4 @@
-"""Device resolution and the toolchain probe.
+"""Device resolution, the toolchain probe, and host <-> device copies.
 
 The port keeps no global device state: the entry point resolves one
 ``torch.device`` here and passes it down.  Counterpart of the JAX
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import importlib.util
 
+import numpy as np
 import torch
 
 
@@ -26,6 +27,38 @@ def resolve_device(name: str) -> torch.device:
                 "plain PyTorch versions on the host")
         return torch.device("cuda", torch.cuda.current_device())
     raise ValueError(f"unknown device {name!r} (expected 'cuda' or 'cpu')")
+
+
+def h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``; a CUDA upload goes through
+    pinned memory without blocking the host."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+class HostCopy:
+    """Device tensors on their way to host memory: the copy into pinned
+    buffers is queued on the current stream; ``wait()`` blocks until it
+    has landed and returns NumPy arrays."""
+
+    def __init__(self, tensors):
+        if tensors[0].is_cuda:
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+        else:
+            self._host = list(tensors)
+            self._done = None
+
+    def wait(self) -> list[np.ndarray]:
+        if self._done is not None:
+            self._done.synchronize()
+        return [h.numpy() for h in self._host]
 
 
 def probe() -> dict:

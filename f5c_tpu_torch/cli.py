@@ -1,5 +1,5 @@
-"""f5c-tpu-torch command line: ``call-methylation`` and ``eventalign`` on
-a CUDA card.
+"""f5c-tpu-torch command line: ``call-methylation``, ``eventalign`` and
+``resquiggle`` on a CUDA card.
 
     python -m f5c_tpu_torch.cli call-methylation -b reads.bam -g genome.fa \\
         -r reads.fasta --slow5 signals.blow5 [-o out.tsv] \\
@@ -7,10 +7,15 @@ a CUDA card.
     python -m f5c_tpu_torch.cli eventalign -b reads.bam -g genome.fa \\
         -r reads.fasta --slow5 signals.blow5 [-o out.tsv] \\
         [--summary summary.tsv] [--sam | --paf | --m6anet] [--device ...]
+    python -m f5c_tpu_torch.cli resquiggle reads.fastq --slow5 signals.blow5
+        [-c] [-o out.tsv] [--device ...]
 
 The options are the JAX package's (``f5c_tpu/cli.py``
-``_add_common_meth_args`` and its eventalign options, copied here);
-``--device`` selects the torch device.  The
+``_add_common_meth_args``, its eventalign options and its resquiggle
+table, copied here); ``--device`` selects the torch device and
+``--events-engine`` where events are detected (``host``: the native
+detector; ``device``: the event kernels, or with ``--device cpu`` their
+plain version; ``auto``: ``host``).  The
 default is ``cuda`` and a run with no card is an error: ``--device cpu``
 is the explicit request for the kernels' plain PyTorch versions on the
 host.  The other subcommands are not ported yet (ROADMAP.md).
@@ -58,11 +63,7 @@ def _add_common_meth_args(p):
                    help="torch device: 'cuda' runs the CUDA kernels (an "
                         "error without a card); 'cpu' runs their plain "
                         "PyTorch versions")
-    p.add_argument("--events-engine", choices=["auto", "host", "device"],
-                   default="auto",
-                   help="event-detection engine: host C++ or the batched "
-                        "on-device detector; auto picks by the measured "
-                        "dispatch latency (BENCH.md)")
+    _add_events_engine_arg(p)
     p.add_argument("-o", "--output", default="-", help="output file")
     p.add_argument("--shard", default=None, metavar="I/N",
                    help="process only reads with read_idx %% N == I "
@@ -112,6 +113,15 @@ def _add_common_meth_args(p):
     _add_cuda_compat_args(p)
 
 
+def _add_events_engine_arg(p) -> None:
+    p.add_argument("--events-engine", choices=["auto", "host", "device"],
+                   default="auto",
+                   help="event-detection engine: the host C++ detector or "
+                        "the batched detector on the --device (CUDA "
+                        "kernels, or their plain version on the cpu); "
+                        "auto: host, as measured on an H100 (PERF.md)")
+
+
 def _add_cuda_compat_args(p, full=True):
     """Accept the reference's CUDA tuning knobs (meth_main.c:76-84) so
     f5c command lines are drop-in; they have no effect yet, and main()
@@ -157,7 +167,7 @@ def _make_pipeline(args, device):
         device=args.device,
         slow5_path=args.slow5,
         verbose=args.verbose,
-        events_engine="host",
+        events_engine=args.events_engine,
     )
     if args.profile:
         from .profiles import apply_profile
@@ -204,12 +214,41 @@ def _add_eventalign_args(p) -> None:
     p.add_argument("--print-read-names", action="store_true")
 
 
+def _add_resquiggle_args(p) -> None:
+    """The JAX CLI's resquiggle table (f5c_tpu/cli.py:280-303), with the
+    port's --device."""
+    p.add_argument("reads", help="reads FASTA/FASTQ")
+    _add_events_engine_arg(p)
+    p.add_argument("--verbose", type=int, default=0)
+    p.add_argument("--fast5-dir", action="append", default=[],
+                   help="FAST5 directory (repeatable)")
+    p.add_argument("--slow5", help="SLOW5/BLOW5 signal file")
+    p.add_argument("--rna", action="store_true")
+    p.add_argument("--pore", choices=["r9", "r10", "rna004"], default="r9")
+    p.add_argument("--kmer-model")
+    p.add_argument("-t", "--threads", type=int, default=None)
+    p.add_argument("-K", "--batchsize", type=int, default=512)
+    p.add_argument("-B", "--max-bases", type=_kmg, default=None,
+                   help="max bases per batch (compat; resquiggle batches "
+                        "by read count)")
+    p.add_argument("-x", "--profile", default=None,
+                   help="parameter preset (see call-methylation -x)")
+    p.add_argument("-c", "--paf", action="store_true",
+                   help="PAF output with ss string (default TSV)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="torch device: 'cuda' runs the CUDA kernels (an "
+                        "error without a card); 'cpu' runs their plain "
+                        "PyTorch versions")
+    p.add_argument("-o", "--output", default="-")
+    _add_cuda_compat_args(p, full=False)
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     ap = argparse.ArgumentParser(
         prog="f5c-tpu-torch",
         description="nanopore signal analysis on PyTorch and CUDA "
-                    "(call-methylation, eventalign)")
+                    "(call-methylation, eventalign, resquiggle)")
     ap.add_argument("--version", action="version",
                     version=f"f5c-tpu-torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -219,18 +258,25 @@ def main(argv=None) -> int:
     p = sub.add_parser("eventalign", help="signal-to-reference alignment")
     _add_common_meth_args(p)
     _add_eventalign_args(p)
+    p = sub.add_parser("resquiggle", help="signal-to-read alignment")
+    _add_resquiggle_args(p)
     args = ap.parse_args(argv)
 
     unported = [flag for flag, given in (
-        ("--dist", args.dist), ("--profile-dir", args.profile_dir),
-        ("--events-engine device", args.events_engine == "device"))
+        ("--dist", getattr(args, "dist", False)),
+        ("--profile-dir", getattr(args, "profile_dir", None)))
         if given]
     if unported:
         ap.error(f"{', '.join(unported)}: not ported to f5c_tpu_torch yet "
                  "(ROADMAP.md)")
+    if args.events_engine == "device" and any(
+            getattr(args, n, None) for n in ("print_raw", "write_dump",
+                                             "read_dump")):
+        ap.error("--events-engine device: --print-raw, --write-dump and "
+                 "--read-dump load read by read with the host detector")
     knobs = [n for n in ("disable_cuda", "cuda_dev_id", "cuda_mem_frac",
                          "cuda_block_size", "cuda_max_lf", "cuda_avg_epk",
-                         "cuda_max_epk") if getattr(args, n) is not None]
+                         "cuda_max_epk") if getattr(args, n, None) is not None]
     if knobs:
         print("f5c-tpu-torch: warning: --"
               + ", --".join(n.replace("_", "-") for n in knobs)
@@ -240,14 +286,25 @@ def main(argv=None) -> int:
     from .backend import resolve_device
 
     try:
+        device = resolve_device(args.device)
         if args.cmd == "eventalign":
             from .pipeline.eventalign import engine_name
 
-            engine_name()
-        device = resolve_device(args.device)
+            engine_name(device)
     except (RuntimeError, ValueError) as e:
         print(f"f5c-tpu-torch: error: {e}", file=sys.stderr)
         return 2
+    if args.cmd == "resquiggle":
+        from .pipeline.resquiggle import run_resquiggle
+
+        out = _out_fh(args.output)
+        try:
+            pipe = run_resquiggle(args, device, out=out)
+        finally:
+            if out is not sys.stdout:
+                out.close()
+        pipe.report()
+        return 0
     pipe = _make_pipeline(args, device)
     out = _out_fh(args.output)
     try:

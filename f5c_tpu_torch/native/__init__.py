@@ -148,6 +148,22 @@ def _declare(lib):
         ctypes.POINTER(_f32), ctypes.POINTER(_f32), ctypes.POINTER(_f32),
         ctypes.POINTER(_f32), ctypes.POINTER(_i32),
         ctypes.POINTER(_i32)]
+    lib.f5c_viterbi_chunk.restype = _i64
+    lib.f5c_viterbi_chunk.argtypes = [
+        _i32p, _i64, _i64, _f32p, _i64, _int, _i64,
+        _f32, _f32, _f32, ctypes.c_double,
+        _f32p, _f32p, _f32p, _u8p]
+    lib.f5c_viterbi_chunk_vp.restype = _i64
+    lib.f5c_viterbi_chunk_vp.argtypes = [
+        _i32p, _i64, _i64, _f32p, _i64, _int, _i64,
+        _f32, _f32, _f32, _f32p,
+        _f32p, _f32p, _f32p, _u8p]
+    lib.f5c_viterbi_params.restype = None
+    lib.f5c_viterbi_params.argtypes = [ctypes.c_double, _f32, _f32p]
+    lib.f5c_emit_resquiggle_tsv.restype = _i64
+    lib.f5c_emit_resquiggle_tsv.argtypes = [
+        ctypes.c_char_p, _i64, _int, _i32p, _i32p, _i64, _i64p, _f32p,
+        ctypes.c_void_p, _i64]
     lib.f5c_disambiguate.restype = None
     lib.f5c_disambiguate.argtypes = [_i8p, _i64, _i8p]
     lib.f5c_collect_meth_groups.restype = _i64
@@ -436,6 +452,101 @@ def realign_read(fwd_ranks, rc_ranks, ref_len: int, ref_offset: int,
         if n >= 0:
             return out_ref[:n].copy(), out_ev[:n].copy(), out_st[:n].copy()
         cap *= 2
+
+
+def viterbi_chunk(ranks: np.ndarray, rank_start: int, rank_stride: int,
+                  n_kmers: int, ev_pool: np.ndarray, e_start: int,
+                  stride: int, n_events: int, scale: float, shift: float,
+                  var: float, events_per_base: float, level_mean,
+                  level_stdv, level_log_stdv):
+    """One eventalign chunk Viterbi on the host (hmm.c:313-533 with the
+    ProfileHMMViterbiOutputR9 policy); returns its movements u8 in walk
+    order, n_steps of them (the device kernel's contract, unpacked)."""
+    lib = get_lib()
+    if n_kmers < 1 or n_events < 1:
+        return np.zeros(0, dtype=np.uint8)
+    movs = np.empty(n_events + n_kmers + 4, dtype=np.uint8)
+    # materialise the (tiny) window contiguously; C walks stride 1
+    if rank_stride == 1:
+        rview = np.ascontiguousarray(ranks[rank_start:rank_start + n_kmers],
+                                     dtype=np.int32)
+    else:
+        rview = np.ascontiguousarray(
+            ranks[max(rank_start - n_kmers + 1, 0):rank_start + 1][::-1],
+            dtype=np.int32)
+    if rview.shape[0] != n_kmers:
+        # a window past the rank array's edge would make C read a
+        # shorter buffer than it was promised
+        raise ValueError(
+            f"viterbi_chunk: rank window [{rank_start} x{rank_stride} "
+            f"n={n_kmers}] exceeds rank array ({ranks.shape[0]})")
+    n = lib.f5c_viterbi_chunk(
+        rview, 1, n_kmers,
+        np.ascontiguousarray(ev_pool, dtype=np.float32), e_start, stride,
+        n_events, scale, shift, var, events_per_base,
+        level_mean, level_stdv, level_log_stdv, movs)
+    return movs[:n]
+
+
+def viterbi_chunk_spec(rank_pool: np.ndarray, spec_i32, spec_f32,
+                       consts, ev_pool: np.ndarray, level_mean, level_stdv,
+                       level_log_stdv) -> np.ndarray:
+    """One chunk of a device round (a row of the specs of
+    ops/hmm.py:viterbi_rounds_plain, its 8 constants), replayed by the host
+    DP: the movements u8 in walk order."""
+    lib = get_lib()
+    r0, r_stride, n_kmers, e0, stride, n_events = (int(v) for v in spec_i32)
+    if n_kmers < 1 or n_events < 1:
+        return np.zeros(0, dtype=np.uint8)
+    rview = np.ascontiguousarray(
+        rank_pool[r0 + r_stride * np.arange(n_kmers)], dtype=np.int32)
+    scale, shift, var, log_var, lp_stay, lp_step = (float(v)
+                                                    for v in spec_f32)
+    mk, mb, bb, b3, kk, km, pre0 = (float(v) for v in consts[:7])
+    vp = np.array([mk, mb, lp_stay, lp_step, bb, b3, kk, km, log_var, pre0],
+                  np.float32)
+    movs = np.empty(n_events + n_kmers + 4, dtype=np.uint8)
+    n = lib.f5c_viterbi_chunk_vp(
+        rview, 1, n_kmers, np.ascontiguousarray(ev_pool, dtype=np.float32),
+        e0, stride, n_events, scale, shift, var, vp, level_mean, level_stdv,
+        level_log_stdv, movs)
+    return movs[:n]
+
+
+def viterbi_params(events_per_base: float, var: float) -> np.ndarray:
+    """The f32 transition log probabilities and log(var) of one read's
+    chunk Viterbi, exactly as ``viterbi_chunk`` forms them: [lp_mk,
+    lp_mb, lp_mm_self, lp_mm_next, lp_bb, lp_b3, lp_kk, lp_km, log_var,
+    pre0]."""
+    out = np.empty(10, np.float32)
+    get_lib().f5c_viterbi_params(events_per_base, var, out)
+    return out
+
+
+def emit_resquiggle_tsv(qname: str, n_kmers: int, rna: bool,
+                        b2e_start: np.ndarray, b2e_stop: np.ndarray,
+                        ev_start: np.ndarray, ev_len: np.ndarray) -> str:
+    """One read's resquiggle TSV rows (resquiggle.c:317-443): per k-mer
+    signal start/end, '.' where unaligned, from the (already RNA-flipped)
+    base-to-event map."""
+    lib = get_lib()
+    q = qname.encode()
+    cap = int(n_kmers) * (len(q) + 50) + 64
+    out = ctypes.create_string_buffer(cap)
+    n = lib.f5c_emit_resquiggle_tsv(
+        q, int(n_kmers), 1 if rna else 0,
+        np.ascontiguousarray(b2e_start, dtype=np.int32),
+        np.ascontiguousarray(b2e_stop, dtype=np.int32),
+        int(len(ev_start)),
+        np.ascontiguousarray(ev_start, dtype=np.int64),
+        np.ascontiguousarray(ev_len, dtype=np.float32),
+        out, cap)
+    if n == -2:
+        raise IndexError("resquiggle: event index out of range in the "
+                         "base-to-event map")
+    if n < 0:
+        raise RuntimeError("resquiggle TSV buffer overflow")
+    return out.raw[:n].decode("ascii")
 
 
 def decode_qc_postalign(packed_dirs: np.ndarray, n: int, start_event: int,

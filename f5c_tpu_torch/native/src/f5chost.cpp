@@ -61,6 +61,7 @@ int64_t f5c_events_from_peaks(const double* sums, const double* sumsqs,
 int64_t f5c_detect_events(const float* sig, int64_t n, int rna,
                           int64_t* ev_start, float* ev_length,
                           float* ev_mean, float* ev_stdv);
+void f5c_viterbi_params(double events_per_base, float var, float* out);
 void f5c_adc_to_pa(const int16_t* raw, int64_t n, float digitisation,
                    float offset, float range, float* out);
 int64_t f5c_kmer_ranks(const char* seq, int64_t n, int k, int meth,
@@ -1672,6 +1673,35 @@ enum { VHMT_SAME_M = 0, VHMT_PREV_M, VHMT_SAME_B, VHMT_PREV_B,
        VHMT_PREV_K, VHMT_SOFT };
 enum { VPS_K = 0, VPS_B = 1, VPS_M = 2 };
 
+// The chunk Viterbi's transition log probabilities (hmm.c:237-307) and
+// log(var), in the order VP_* names them.  The device kernel
+// (f5c_tpu_torch/csrc/viterbi.cu) takes these very values, so that no
+// logarithm is evaluated on the card.
+enum { VP_MK = 0, VP_MB, VP_MM_SELF, VP_MM_NEXT, VP_BB, VP_B3, VP_KK,
+       VP_KM, VP_LOG_VAR, VP_PRE0, VP_N };
+
+void f5c_viterbi_params(double events_per_base, float var, float* out) {
+  float p_stay = (float)(1.0 - (1.0 / events_per_base));
+  float p_skip = 0.0025f, p_bad = 0.001f, p_skip_self = 0.3f;
+  out[VP_MK] = logf(p_skip);
+  out[VP_MB] = logf(p_bad);
+  out[VP_MM_SELF] = logf(p_stay);
+  out[VP_MM_NEXT] = logf(1.0f - p_stay - p_skip - p_bad);
+  out[VP_BB] = logf(p_bad);
+  out[VP_B3] = logf((1.0f - p_bad) / 3);
+  out[VP_KK] = logf(p_skip_self);
+  out[VP_KM] = logf(1.0f - p_skip_self);
+  out[VP_LOG_VAR] = logf(var);
+  out[VP_PRE0] = logf(0.5f);  // pre_flank[0] = log(1 - 0.5)
+}
+
+int64_t f5c_viterbi_chunk_vp(
+    const int32_t* ranks, int64_t rank_stride, int64_t n_kmers,
+    const float* ev_pool, int64_t e_start, int stride, int64_t n_events,
+    float scale, float shift, float var, const float* vp,
+    const float* level_mean, const float* level_stdv,
+    const float* level_log_stdv, uint8_t* movements_out);
+
 int64_t f5c_viterbi_chunk(
     const int32_t* ranks, int64_t rank_stride, int64_t n_kmers,
     const float* ev_pool, int64_t e_start, int stride, int64_t n_events,
@@ -1679,25 +1709,36 @@ int64_t f5c_viterbi_chunk(
     const float* level_mean, const float* level_stdv,
     const float* level_log_stdv,
     uint8_t* movements_out) {
+  float vp[VP_N];
+  f5c_viterbi_params(events_per_base, var, vp);
+  return f5c_viterbi_chunk_vp(ranks, rank_stride, n_kmers, ev_pool, e_start,
+                              stride, n_events, scale, shift, var, vp,
+                              level_mean, level_stdv, level_log_stdv,
+                              movements_out);
+}
+
+// The chunk DP with its f5c_viterbi_params given (`vp`, VP_N floats): the
+// device kernel's contract, so that a round recorded on the card can be
+// replayed here chunk by chunk.
+int64_t f5c_viterbi_chunk_vp(
+    const int32_t* ranks, int64_t rank_stride, int64_t n_kmers,
+    const float* ev_pool, int64_t e_start, int stride, int64_t n_events,
+    float scale, float shift, float var, const float* vp,
+    const float* level_mean, const float* level_stdv,
+    const float* level_log_stdv, uint8_t* movements_out) {
   if (n_kmers < 1 || n_events < 1) return 0;  // nothing to align
   const float NEGINF = -INFINITY;
   int64_t n_rows = n_events + 1;
   int64_t nb = n_kmers + 2;   // blocks incl. terminal 0 and n_kmers+1
 
   // block transitions (hmm.c:237-307), identical for every block
-  float p_stay = (float)(1.0 - (1.0 / events_per_base));
-  float p_skip = 0.0025f, p_bad = 0.001f, p_skip_self = 0.3f;
-  float lp_mk = logf(p_skip);
-  float lp_mb = logf(p_bad);
-  float lp_mm_self = logf(p_stay);
-  float lp_mm_next = logf(1.0f - p_stay - p_skip - p_bad);
-  float lp_bb = logf(p_bad);
-  float lp_b3 = logf((1.0f - p_bad) / 3);
-  float lp_kk = logf(p_skip_self);
-  float lp_km = logf(1.0f - p_skip_self);
+  const float lp_mk = vp[VP_MK], lp_mb = vp[VP_MB];
+  const float lp_mm_self = vp[VP_MM_SELF], lp_mm_next = vp[VP_MM_NEXT];
+  const float lp_bb = vp[VP_BB], lp_b3 = vp[VP_B3];
+  const float lp_kk = vp[VP_KK], lp_km = vp[VP_KM];
   const float LOG_INV_SQRT_2PI = -0.918938f;
-  float log_var = logf(var);
-  const float pre0 = logf(0.5f);  // pre_flank[0] = log(1 - 0.5)
+  const float log_var = vp[VP_LOG_VAR];
+  const float pre0 = vp[VP_PRE0];
 
   // per-kmer scaled gaussians (division like the reference, not
   // reciprocal-multiply, for exact emission parity); buffers are

@@ -44,11 +44,19 @@ _SIGNATURES = {
     "f5c_hmm_window_ranks": [_vp] * 4 + [_i64] + [_int] * 3 + [_vp],
     "f5c_abea_fill_window": [_vp] * 15 + [_int] * 6 + [_vp],
     "f5c_abea_walk_window": [_vp] * 5 + [_int] * 4 + [_vp],
+    "f5c_viterbi_rounds": [_vp] * 12 + [_int] * 4 + [_vp],
+    "f5c_events_detect": [_vp] * 9 + [_int] * 2 + [_vp],
+    "f5c_events_assemble": [_vp] * 9 + [_int] + [_vp],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}
+# while a caller holds a list here, the wrappers that wait on the card
+# (K8's and K9's) append a (start, stop) pair of CUDA events around each
+# of their launches: the kernels' own time, apart from their wrappers'
+# host work (chip_smoke.py times them so)
+launch_spans = None
 
 
 def find_nvcc() -> str | None:
@@ -160,6 +168,24 @@ def stream_handle(device) -> int:
     """torch's current CUDA stream on ``device``, as the C entry points
     take it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def span_start(device):
+    """A CUDA event recorded before a launch on ``device``'s current
+    stream, or None when no caller records spans."""
+    if launch_spans is None:
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def span_stop(start, device) -> None:
+    """Close the span that ``span_start`` opened (None: nothing)."""
+    if start is not None:
+        stop = torch.cuda.Event(enable_timing=True)
+        stop.record(torch.cuda.current_stream(device))
+        launch_spans.append((start, stop))
 
 
 def check_error(lib: ctypes.CDLL, name: str, err: int) -> None:

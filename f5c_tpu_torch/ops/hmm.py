@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..constants import (HMM_BACKGROUND_EMISSION, HMM_P_BAD, HMM_P_SKIP,
                          HMM_P_SKIP_SELF, TRANS_CLIP_SELF,
                          TRANS_START_TO_CLIP)
@@ -166,3 +167,213 @@ def hmm_forward_plain(ranks, n_km, ev_pool, ev_start, stride, n_ev, scale,
             do_end &= i == n_ev - 1
         lp_end = torch.where(do_end, _logaddexp(lp_end, end), lp_end)
     return lp_end.to(dt)
+
+
+# --- Viterbi (eventalign re-alignment, K8) ----------------------------------
+#
+# The same 3-state-per-k-mer profile HMM in the max-plus semiring, with
+# movement tracking for the backtrace (hmm.c:313-533, the
+# ProfileHMMViterbiOutputR9 policy; eventalign.c:765 sets no soft clips, so
+# the start transition goes only into row 1 and the backtrace starts at
+# the last row's MATCH of the last k-mer).  Counterpart of
+# ``f5c_tpu/ops/hmm.py:hmm_viterbi_rounds`` (contract) with the arithmetic
+# of the port's host DP, ``native.viterbi_chunk``, operation for
+# operation: its f32 transition log probabilities and log(var) come from
+# ``native.viterbi_params``, and the emission divides by the scaled stdv.
+#
+# A round of chunks: spec_i32 [N, 6] = rank_start, rank_stride, n_kmers,
+# ev_start, ev_stride, n_events (k-mer i's rank at rank_pool[rank_start +
+# i*rank_stride], event row r's mean at ev_pool[ev_start +
+# (r-1)*ev_stride]); spec_f32 [N, 6] = scale, shift, var, log_var,
+# lp_stay, lp_step; the 8 constants of viterbi_consts.
+# Output: movements, 3-bit HMT codes in walk order two to a byte (u8 [N,
+# max_path/2]), and n_steps i32 [N].
+
+HMT_FROM_SAME_M = 0
+HMT_FROM_PREV_M = 1
+HMT_FROM_SAME_B = 2
+HMT_FROM_PREV_B = 3
+HMT_FROM_PREV_K = 4
+HMT_FROM_SOFT = 5
+
+# next profile state per movement code: M, M, B, B, K
+_NEXT_PS = (2, 2, 1, 1, 0)
+
+
+def viterbi_consts() -> np.ndarray:
+    """f32 [8]: lp_mk, lp_mb, lp_bb, lp_b3, lp_kk, lp_km, pre0,
+    LOG_INV_SQRT_2PI, as the host DP forms them (csrc/viterbi.cu reads
+    them in this order)."""
+    p = native.viterbi_params(2.0, 1.0)  # these do not depend on the read
+    return np.array([p[0], p[1], p[4], p[5], p[6], p[7], p[9],
+                     LOG_INV_SQRT_2PI], np.float32)
+
+
+def viterbi_read_params(events_per_base: float, var: float):
+    """(log_var, lp_stay, lp_step) f32 of one read, as the host DP forms
+    them."""
+    p = native.viterbi_params(events_per_base, var)
+    return p[8], p[2], p[3]
+
+
+def viterbi_max_path(n_kmers, n_events) -> int:
+    """Movement capacity of a round: a walk takes at most one step per
+    event row and one per k-mer (plus the soft start), rounded to even."""
+    m = int(np.max(np.asarray(n_kmers) + np.asarray(n_events))) + 2
+    return m + (m & 1)
+
+
+def viterbi_rounds_plain(spec_i32, spec_f32, consts, rank_pool, ev_pool,
+                         level_mean, level_stdv, level_log_stdv,
+                         max_path: int):
+    """Plain PyTorch version of csrc/viterbi.cu: the fill as a loop over
+    event rows vectorised over the round's chunks and k-mers (the
+    KMER_SKIP chain a ``torch.cummax`` in d-space), each cell's movement
+    codes in one byte (MATCH bits 0-2, BAD_EVENT's SAME_B bit 3, KMER_SKIP
+    bits 4-6), then the backtraces, vectorised over chunks.  Returns
+    (movements u8 [N, max_path//2], n_steps i32 [N])."""
+    dev = spec_i32.device
+    f32 = torch.float32
+    N = spec_i32.shape[0]
+    movs = torch.zeros((N, max_path // 2), dtype=torch.uint8, device=dev)
+    n_steps = torch.zeros(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return movs, n_steps
+    si = spec_i32.long()
+    nk, ne = si[:, 2], si[:, 5]
+    K, E = int(nk.max()), int(ne.max())
+    if K < 1 or E < 1:
+        return movs, n_steps
+    (lp_mk, lp_mb, lp_bb, lp_b3, lp_kk, lp_km, pre0,
+     log_inv) = torch.as_tensor(consts, dtype=f32, device=dev).unbind(0)
+    scale, shift, var, log_var, lp_stay, lp_step = (
+        spec_f32[:, i, None] for i in range(6))
+    cols = torch.arange(K, device=dev)
+    in_k = cols[None, :] < nk[:, None]
+    r = rank_pool[torch.where(in_k, si[:, :1] + cols[None, :] * si[:, 1:2],
+                              0)].long()
+    gm = scale * level_mean[r] + shift
+    gs = level_stdv[r] * var
+    gl = level_log_stdv[r] + log_var
+    ig = cols.to(f32) * lp_kk                     # (b-1)*lp_kk, exact f32
+    ninf_col = torch.full((N, 1), NEG_INF, dtype=f32, device=dev)
+    M = B = Kst = torch.full((N, K + 1), NEG_INF, dtype=f32, device=dev)
+    tab = torch.zeros((E, N, K + 1), dtype=torch.uint8, device=dev)
+    L = ev_pool.shape[0]
+    for row in range(1, E + 1):
+        active = (row <= ne)[:, None]
+        e = ev_pool[(si[:, 3] + (row - 1) * si[:, 4]).clamp(0, L - 1)]
+        a = (e[:, None] - gm) / gs
+        em = (log_inv - gl) + (-0.5 * a) * a
+        s0 = lp_stay + M[:, 1:]
+        s1 = lp_step + M[:, :-1]
+        s2 = lp_b3 + B[:, 1:]
+        s3 = lp_b3 + B[:, :-1]
+        s4 = lp_km + Kst[:, :-1]
+        mx = torch.where(s1 > s0, s1, s0)
+        mx23 = torch.where(s3 > s2, s3, s2)
+        mx = torch.where(mx > mx23, mx, mx23)
+        mx = torch.where(s4 > mx, s4, mx)
+        frm = torch.zeros((N, K), dtype=torch.uint8, device=dev)
+        for code, s in ((1, s1), (2, s2), (3, s3), (4, s4)):
+            frm = torch.where(s == mx, code, frm)
+        if row == 1:
+            # the soft start into k-mer 0: every other candidate is -inf
+            # in row 1, so the sequential running max picks pre0
+            mx = torch.cat([pre0.expand(N, 1), mx[:, 1:]], dim=1)
+            frm[:, 0] = HMT_FROM_SOFT
+        m_new = mx + em
+        b_m = lp_mb + M[:, 1:]
+        b_b = lp_bb + B[:, 1:]
+        same_b = b_b >= b_m
+        b_new = torch.where(same_b, b_b, b_m)
+        m_full = torch.cat([ninf_col, m_new], dim=1)
+        b_full = torch.cat([ninf_col, b_new], dim=1)
+        c1 = lp_mk + m_full[:, :-1]
+        c2 = lp_b3 + b_full[:, :-1]
+        c = torch.where(c1 > c2, c1, c2)
+        d = c - ig
+        incl = torch.cummax(d, dim=1).values
+        cp = torch.cat([ninf_col, incl[:, :-1]], dim=1)
+        k_new = ig + incl
+        kc = torch.where(cp >= d, HMT_FROM_PREV_K,
+                         torch.where(c2 == c, HMT_FROM_PREV_B,
+                                     HMT_FROM_PREV_M)).to(torch.uint8)
+        tab[row - 1, :, 1:] = frm | (same_b.to(torch.uint8) << 3) | (kc << 4)
+        M = torch.where(active, m_full, M)
+        B = torch.where(active, b_full, B)
+        Kst = torch.where(active, torch.cat([ninf_col, k_new], dim=1), Kst)
+    return _viterbi_backtrace(tab, nk, ne, max_path, movs, n_steps)
+
+
+def _viterbi_backtrace(tab, nk, ne, max_path: int, movs, n_steps):
+    """The backtraces of viterbi_rounds_plain, vectorised over chunks."""
+    dev = tab.device
+    N = nk.shape[0]
+    next_ps = torch.tensor(_NEXT_PS + (0,), device=dev)
+    idx = torch.arange(N, device=dev)
+    row, blk = ne.clone(), nk.clone()
+    ps = torch.full((N,), 2, dtype=torch.long, device=dev)
+    live = (row > 0) & (blk > 0)
+    out = torch.zeros((N, max_path), dtype=torch.long, device=dev)
+    n = torch.zeros(N, dtype=torch.long, device=dev)
+    for step in range(max_path):
+        if not bool(live.any()):
+            break
+        code = tab[(row - 1).clamp(min=0), idx, blk.clamp(min=0)].long()
+        mv = torch.where(ps == 2, code & 7,
+                         torch.where(ps == 1,
+                                     torch.where((code & 8) != 0,
+                                                 HMT_FROM_SAME_B,
+                                                 HMT_FROM_SAME_M),
+                                     (code >> 4) & 7))
+        out[:, step] = torch.where(live, mv, 0)
+        n = n + live.long()
+        dec_k = ((mv == HMT_FROM_PREV_M) | (mv == HMT_FROM_PREV_B)
+                 | (mv == HMT_FROM_PREV_K))
+        go = live & (mv != HMT_FROM_SOFT)
+        row = torch.where(go & (ps != 0), row - 1, row)
+        blk = torch.where(go, blk - dec_k.long(), blk)
+        ps = torch.where(go, next_ps[mv.clamp(0, 5)], ps)
+        live = go & (row > 0) & (blk >= 0)
+    m2 = out.reshape(N, max_path // 2, 2)
+    movs[:] = (m2[..., 0] | (m2[..., 1] << 3)).to(torch.uint8)
+    n_steps[:] = n.to(torch.int32)
+    return movs, n_steps
+
+
+def unpack_movements(packed_row: np.ndarray, n_steps: int) -> np.ndarray:
+    """Host-side unpack of the 2-per-byte movements of one chunk."""
+    b = packed_row[: (n_steps + 1) // 2]
+    out = np.empty(2 * b.shape[0], dtype=np.uint8)
+    out[0::2] = b & 7
+    out[1::2] = b >> 3
+    return out[:n_steps]
+
+
+def decode_viterbi_movements(movs: np.ndarray, n_steps: int, e_start: int,
+                             event_stride: int, n_events: int,
+                             n_kmers: int):
+    """Reconstruct the reference's HMMAlignmentState list from the walk.
+
+    Returns (event_idx, kmer_idx, state u8 0=K/1=B/2=M) arrays in FORWARD
+    path order (the walk is reversed, eventalign.c:905).  Vectorised.
+    """
+    if n_steps == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z.astype(np.uint8)
+    mv = movs[:n_steps].astype(np.int64)
+    next_ps = np.array(_NEXT_PS + (0,), dtype=np.int64)
+    # state at step i: ps_0 = M; ps_{i+1} = next_ps[mv_i]
+    ps = np.empty(n_steps, dtype=np.int64)
+    ps[0] = 2
+    ps[1:] = next_ps[mv[:-1]]
+    dec_k = ((mv == HMT_FROM_PREV_M) | (mv == HMT_FROM_PREV_B)
+             | (mv == HMT_FROM_PREV_K)).astype(np.int64)
+    kmer_idx = (n_kmers - 1) - (np.cumsum(dec_k) - dec_k)
+    # row decrements when the visited state is not KMER_SKIP (silent)
+    dec_r = (ps != 0).astype(np.int64)
+    row = n_events - (np.cumsum(dec_r) - dec_r)
+    event_idx = e_start + (row - 1) * event_stride
+    return (event_idx[::-1].copy(), kmer_idx[::-1].copy(),
+            ps[::-1].astype(np.uint8))

@@ -1,23 +1,25 @@
 """eventalign on PyTorch: events re-aligned to the reference, segment by
 segment, after the port's ABEA.
 
-Counterpart of ``f5c_tpu/pipeline/eventalign.py``.  The record type and
-the row emitters (TSV, SAM, PAF, m6anet, summary; eventalign.c:1574-2349
-column for column) are that module's, copied.  What reached JAX is
-re-implemented here:
+Counterpart of ``f5c_tpu/pipeline/eventalign.py``.  The record type, the
+row emitters (TSV, SAM, PAF, m6anet, summary; eventalign.c:1574-2349
+column for column) and the lockstep bookkeeping (``_ReadState``,
+``ClosestEvent``, ``_get_end_pair``, the chunk cursor and commit) are that
+module's, copied.  What reached JAX is re-implemented here:
 
-- ``EventalignEngine`` runs the re-alignment with the native engine only:
-  the whole-read C++ loop ``native.realign_read`` (eventalign.c
-  realign_read), read by read over the host pool.  It needs nothing from
-  the card; the card's share of eventalign is ABEA, done by the port's
-  ``Pipeline``.  ``F5C_TPU_EA_ENGINE`` = ``auto`` (default) or ``native``
-  both mean the native engine until the device Viterbi engine (K8) is
-  ported; ``device`` and ``python``, the engines built on it, are an
-  error that names the ROADMAP item.
+- ``EventalignEngine`` re-aligns a batch with one of three engines: the
+  whole-read C++ loop ``native.realign_read`` (eventalign.c realign_read)
+  read by read over the host pool, or lockstep rounds -- every active read
+  contributes its next ~100-base chunk and a round's chunks go to the
+  Viterbi kernel (K8, ``ops/viterbi_cuda.py``, csrc/viterbi.cu) in one
+  launch, against rank and event pools uploaded once a batch -- with or
+  without small rounds on the host.  ``auto`` is the native engine, as
+  measured on the card (``EventalignEngine``).  The mesh branch
+  (``shard_viterbi_rounds``) is not ported (ROADMAP Queue 1 d).
 - ``run_eventalign`` is the batch loop and emission of the JAX module's
   ``run_eventalign`` (eventalign.py:1012-1128) with this engine.  The
-  re-alignment of a wave runs on the host while the card fills the next
-  wave; reads aligned by windows (ultra-long) finish after the waves.
+  re-alignment of a wave runs while the card fills the next wave; reads
+  aligned by windows (ultra-long) finish after the waves.
 """
 
 from __future__ import annotations
@@ -26,13 +28,18 @@ import functools
 import os
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .. import native
+from ..backend import h2d
 from ..io.bam import (CDEL, CDIFF, CEQUAL, CHARD_CLIP, CINS, CMATCH,
                       CREF_SKIP, CSOFT_CLIP)
+from ..ops import viterbi_cuda
+from ..ops.hmm import (decode_viterbi_movements, unpack_movements,
+                       viterbi_consts, viterbi_max_path, viterbi_read_params)
 from .writer import AsyncWriter
 
 _COMP = np.zeros(256, dtype=np.uint8)
@@ -403,41 +410,242 @@ def emit_sam(recs: EventAlignmentRecords, read, contig: str, ref_len: int,
             f"sh:f:{sc.shift:.2f}\n")
 
 
-K8_ITEM = ("the device Viterbi engine (K8, f5c_tpu/ops/hmm.py "
-           "hmm_viterbi_rounds) is not ported to f5c_tpu_torch yet: see "
-           "ROADMAP.md, Queue 1 item a")
+ALIGN_STRIDE = 100   # reference bases aligned per chunk (eventalign.c:1338)
+OUTPUT_STRIDE = 50   # event alignments committed per chunk (:1339)
+ENGINES = ("auto", "native", "python", "device")
 
 
-def engine_name() -> str:
-    """The re-alignment engine that ``F5C_TPU_EA_ENGINE`` selects."""
+class ClosestEvent:
+    """O(1) closest-event lookup with the reference's quirky scan bounds
+    (eventalign.c:971-996 / meth.c:100-125)."""
+
+    def __init__(self, b2e_start: np.ndarray):
+        b2e = np.asarray(b2e_start, dtype=np.int64)
+        n = b2e.shape[0]
+        idx = np.arange(n)
+        filled = b2e != -1
+        back = np.where(filled, idx, -1)
+        np.maximum.accumulate(back, out=back)
+        fwd = np.where(filled, idx, n + 10)
+        fwd = np.minimum.accumulate(fwd[::-1])[::-1]
+        self.b2e = b2e
+        self.back = back
+        self.fwd = fwd
+        self.n = n
+
+    def __call__(self, k_idx: int) -> int:
+        k = int(k_idx)
+        n = self.n
+        # down-scan checks j in [max(0, k-1000)+?..k]; index stop is
+        # exclusive, so j == stop is never checked
+        before = -1
+        if k >= 1:
+            b = self.back[k]
+            stop = max(0, k - 1000)
+            if b > stop:
+                before = int(self.b2e[b])
+        if before != -1:
+            return before
+        stop_after = min(k + 1000, n - 1)
+        f = self.fwd[k] if k < n else n + 10
+        if f < stop_after:
+            return int(self.b2e[f])
+        return -1
+
+
+@dataclass
+class _ReadState:
+    read: object                # ReadRecord
+    ref_disamb: bytes = b""
+    ref_offset: int = 0
+    fwd_ranks: np.ndarray = None
+    rc_ranks: np.ndarray = None
+    ev_off: int = 0             # offsets into the device-resident pools
+    fwd_off: int = 0
+    rc_off: int = 0
+    params: tuple = ()          # f32 (log_var, lp_stay, lp_step)
+    segments: list = field(default_factory=list)
+    seg_idx: int = 0
+    pairs: np.ndarray = None    # current segment pairs
+    closest: ClosestEvent = None
+    # cursor within the current segment
+    curr_start_event: int = 0
+    curr_start_ref: int = 0
+    curr_pair_idx: int = 0
+    last_event: int = 0
+    forward: bool = True
+    done: bool = False
+    out_ref: list = field(default_factory=list)
+    out_ev: list = field(default_factory=list)
+    out_st: list = field(default_factory=list)
+
+    def start_segment(self, k: int) -> bool:
+        """Initialise the cursor for the next segment; False if none left
+        or the segment is unusable (reference returns early)."""
+        while self.seg_idx < len(self.segments):
+            pairs = self.segments[self.seg_idx]
+            self.seg_idx += 1
+            r = self.read
+            # trim to max kmer index (eventalign.c:956-966)
+            max_kmer_idx = len(r.seq) - k
+            hi = pairs.shape[0]
+            while hi > 0 and pairs[hi - 1, 1] > max_kmer_idx:
+                hi -= 1
+            pairs = pairs[:hi]
+            if pairs.shape[0] == 0:
+                self.done = True     # reference returns alignment_output
+                return False
+            rl = len(r.seq)
+            ks = int(pairs[0, 1])
+            ke = int(pairs[-1, 1])
+            if r.is_reverse:
+                ks = rl - ks - k
+                ke = rl - ke - k
+            first_event = self.closest(ks)
+            last_event = self.closest(ke)
+            self.pairs = pairs
+            self.forward = first_event < last_event
+            self.curr_start_event = first_event
+            self.curr_start_ref = int(pairs[0, 0])
+            self.curr_pair_idx = 0
+            self.last_event = last_event
+            return True
+        self.done = True
+        return False
+
+
+def _get_end_pair(ref_pos: np.ndarray, ref_pos_max: int,
+                  pair_idx: int) -> int:
+    """First index after pair_idx whose ref exceeds max, minus one
+    (eventalign.c:928-938)."""
+    j = int(np.searchsorted(ref_pos[pair_idx:], ref_pos_max + 1) + pair_idx)
+    if j >= ref_pos.shape[0]:
+        return ref_pos.shape[0] - 1
+    return j - 1
+
+
+_PROBE = {}
+
+
+def measured_dispatch_overhead(device: torch.device) -> float:
+    """Seconds for one tiny op on ``device`` and the copy of its result to
+    the host, measured once per process and device (median of 3 warm
+    calls): what a lockstep round pays twice beyond its compute (the
+    specs up, the movements down)."""
+    key = ("dispatch", str(device))
+    if key not in _PROBE:
+        x = torch.zeros(8, dtype=torch.float32, device=device)
+        (x + 1.0).cpu()                      # first-use costs
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            (x + 1.0).cpu()
+            ts.append(time.perf_counter() - t0)
+        _PROBE[key] = sorted(ts)[1]
+    return _PROBE[key]
+
+
+def measured_host_chunk_secs(model) -> float:
+    """Seconds for one typical eventalign chunk DP on the host
+    (native.viterbi_chunk on a synthetic ~ALIGN_STRIDE-base window),
+    measured once per process."""
+    if "host_chunk" not in _PROBE:
+        nk = ALIGN_STRIDE - model.k + 1
+        ne = int(nk * 1.8)
+        rng = np.random.default_rng(0)
+        rk = rng.integers(0, model.level_mean.shape[0], nk
+                          ).astype(np.int32)
+        ev = (model.level_mean[rk[np.clip(
+            np.linspace(0, nk, ne, endpoint=False).astype(int),
+            0, nk - 1)]] + rng.normal(0, 2, ne)).astype(np.float32)
+        args = (rk, 0, 1, nk, ev, 0, 1, ne, 1.0, 0.0, 1.0, ne / nk,
+                model.level_mean, model.level_stdv, model.level_log_stdv)
+        native.viterbi_chunk(*args)          # warm (page-in, caches)
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            native.viterbi_chunk(*args)
+            ts.append(time.perf_counter() - t0)
+        _PROBE["host_chunk"] = sorted(ts)[1]
+    return _PROBE["host_chunk"]
+
+
+def engine_name(device: torch.device = torch.device("cpu")) -> str:
+    """The re-alignment engine that ``F5C_TPU_EA_ENGINE`` selects for a
+    run on ``device``.  ``python`` runs chunk DPs on the host, so it is
+    refused on a CUDA device, where every round goes to the kernel."""
     name = os.environ.get("F5C_TPU_EA_ENGINE", "auto")
-    if name in ("device", "python"):
-        raise NotImplementedError(f"F5C_TPU_EA_ENGINE={name}: {K8_ITEM}")
-    if name not in ("auto", "native"):
+    if name not in ENGINES:
         raise ValueError(f"F5C_TPU_EA_ENGINE={name!r}: expected auto, "
-                         "native, device or python")
-    return "native"
+                         "native, python or device")
+    if name == "python" and device.type == "cuda":
+        raise ValueError("F5C_TPU_EA_ENGINE=python runs on the cpu only; "
+                         "on a card use native or device")
+    return name
 
 
 class EventalignEngine:
-    """Batched re-alignment of reads that passed ABEA + QC, with the
-    native engine (see the module docstring)."""
+    """Batched re-alignment of reads that passed ABEA + QC.
 
-    def __init__(self, model, region_start: int = -1, region_end: int = -1):
-        self.engine = engine_name()
+    ``F5C_TPU_EA_ENGINE`` = ``native`` (the whole-read C++ loop
+    ``native.realign_read``, read by read over the host pool), ``device``
+    (lockstep rounds: every active read contributes its next chunk, and a
+    round's chunks go to the Viterbi kernel, csrc/viterbi.cu, in one
+    launch; on the CPU its plain version), ``python`` (CPU runs only:
+    lockstep rounds whose small rounds run ``native.viterbi_chunk`` per
+    chunk and the others the plain version), or ``auto`` (default), which
+    is ``native``.  The JAX engine resolves ``auto`` to ``device`` when a
+    round of the batch's host DPs outlasts two dispatches; on an H100
+    that rule picks ``device`` for 6 and for 510 reads, and the device
+    engine then loses end to end on 510 reads (PERF.md): each chunk's
+    host bookkeeping in the lockstep loop costs more than the DP it
+    moves to the card.
+    ``F5C_TPU_VIT_HOST_MAX`` sets the round size at or below which
+    ``python`` runs a round on the host (the probed crossover of the
+    probes below when unset); ``device`` runs every round through the
+    kernel's wrapper.  The records are the same bytes whichever engine
+    runs."""
+
+    def __init__(self, model, region_start: int = -1, region_end: int = -1,
+                 device: torch.device = torch.device("cpu")):
+        self.engine = engine_name(device)
         native.get_lib()     # raises when the host library cannot load
         self.model = model
         self.k = model.k
         self.region_start = region_start
         self.region_end = region_end
+        self.device = device
+        env_max = os.environ.get("F5C_TPU_VIT_HOST_MAX")
+        self.host_round_max = int(env_max) if env_max is not None else None
+        self._tables = None
+        self._consts = viterbi_consts()
+        self.stats = {"rounds_device": 0, "rounds_host": 0, "chunks": 0}
+
+    def _probed_round_max(self) -> int:
+        """Crossover round size: a device round pays ~2 synchronous
+        trips (spec upload + movement download); below
+        overhead/host_chunk items the host finishes first."""
+        overhead = 2.0 * measured_dispatch_overhead(self.device)
+        per_chunk = measured_host_chunk_secs(self.model)
+        return max(16, min(100_000, int(overhead / max(per_chunk, 1e-7))))
+
+    def resolve(self) -> str:
+        """The engine a batch runs on (``auto`` is ``native``), probing
+        the host/device crossover where the engine needs it."""
+        engine = self.engine
+        if engine in ("auto", "native"):
+            return "native"
+        if self.host_round_max is None:
+            # only python consults the crossover; device runs every round
+            # on the device
+            self.host_round_max = (self._probed_round_max()
+                                   if engine == "python" else 0)
+        return engine
 
     def _realign_one(self, r, ref_seq: str):
         m, k = self.model, self.k
         dis = native.disambiguate(ref_seq.upper().encode())
-        segs = aligned_segments(r.cigar, r.pos)
-        if self.region_start != -1 and self.region_end != -1:
-            segs = [s[(s[:, 0] >= self.region_start)
-                      & (s[:, 0] <= self.region_end)] for s in segs]
+        segs = self._segments(r)
         sc = r.scaling
         rr, ev, ps = native.realign_read(
             native.kmer_ranks(dis, k),
@@ -449,15 +657,229 @@ class EventalignEngine:
             ref_position=rr, event_idx=ev, state=ps, rc=bool(r.is_reverse),
             ref_disamb=dis, ref_offset=r.pos)
 
+    def _segments(self, r):
+        segs = aligned_segments(r.cigar, r.pos)
+        if self.region_start != -1 and self.region_end != -1:
+            segs = [s[(s[:, 0] >= self.region_start)
+                      & (s[:, 0] <= self.region_end)] for s in segs]
+        return segs
+
     def realign_batch(self, reads, ref_segments, pool=None) -> dict:
         """{id(read): EventAlignmentRecords}; ``ref_segments[i]`` is read
-        i's reference from its mapping position to its end.  Reads are
-        independent and the C++ loop releases the GIL, so ``pool`` (a
-        thread pool, or None) runs them side by side."""
-        if pool is not None:
-            return dict(pool.map(self._realign_one, reads, ref_segments))
-        return dict(self._realign_one(r, s)
-                    for r, s in zip(reads, ref_segments))
+        i's reference from its mapping position to its end.  The native
+        engine runs reads side by side on ``pool`` (a thread pool, or
+        None; the C++ loop releases the GIL); the lockstep engines run
+        rounds over the whole batch."""
+        engine = self.resolve()
+        if engine == "native":
+            if pool is not None:
+                return dict(pool.map(self._realign_one, reads, ref_segments))
+            return dict(self._realign_one(r, s)
+                        for r, s in zip(reads, ref_segments))
+        return self._realign_lockstep(reads, ref_segments, engine)
+
+    def _realign_lockstep(self, reads, ref_segments, engine: str) -> dict:
+        k = self.k
+        states = []
+        rank_parts = []
+        ev_parts = []
+        rank_off = 0
+        ev_off = 0
+        for r, ref_seq in zip(reads, ref_segments):
+            st = _ReadState(read=r)
+            dis = native.disambiguate(ref_seq.upper().encode())
+            st.ref_disamb = dis
+            st.ref_offset = r.pos
+            st.fwd_ranks = native.kmer_ranks(dis, k)
+            st.rc_ranks = native.kmer_ranks(revcomp_bytes(dis), k)
+            st.fwd_off = rank_off
+            rank_parts.append(st.fwd_ranks)
+            rank_off += st.fwd_ranks.shape[0]
+            st.rc_off = rank_off
+            rank_parts.append(st.rc_ranks)
+            rank_off += st.rc_ranks.shape[0]
+            st.ev_off = ev_off
+            ev_parts.append(r.event_means)
+            ev_off += r.event_means.shape[0]
+            st.params = viterbi_read_params(r.events_per_base,
+                                            r.scaling.var)
+            st.segments = self._segments(r)
+            st.closest = ClosestEvent(r.b2e_start)
+            st.start_segment(k)     # sets done when there is none
+            states.append(st)
+        host_max = self.host_round_max if engine == "python" else 0
+        if rank_parts:
+            # the pools go up once a batch; a round ships only its specs
+            dev = self.device
+            self._rank_pool = h2d(np.concatenate(rank_parts).astype(
+                np.int32, copy=False), dev)
+            self._ev_pool = h2d(np.concatenate(ev_parts).astype(
+                np.float32, copy=False), dev)
+            if self._tables is None:
+                m = self.model
+                self._tables = tuple(h2d(np.asarray(t, np.float32),
+                                                dev)
+                                     for t in (m.level_mean, m.level_stdv,
+                                               m.level_log_stdv))
+
+        active = [st for st in states if not st.done]
+        while active:
+            self._run_round(active, host_max)
+            next_active = []
+            for st in active:
+                if st.done and st.seg_idx < len(st.segments):
+                    st.done = False
+                    if st.start_segment(self.k):
+                        next_active.append(st)
+                elif not st.done:
+                    next_active.append(st)
+            active = next_active
+
+        out = {}
+        for st in states:
+            r = st.read
+            if st.out_ref:
+                out[id(r)] = EventAlignmentRecords(
+                    ref_position=np.concatenate(st.out_ref),
+                    event_idx=np.concatenate(st.out_ev),
+                    state=np.concatenate(st.out_st),
+                    rc=bool(r.is_reverse), ref_disamb=st.ref_disamb,
+                    ref_offset=st.ref_offset)
+            else:
+                out[id(r)] = EventAlignmentRecords(
+                    ref_position=np.zeros(0, np.int64),
+                    event_idx=np.zeros(0, np.int64),
+                    state=np.zeros(0, np.uint8), rc=bool(r.is_reverse),
+                    ref_disamb=st.ref_disamb, ref_offset=st.ref_offset)
+        return out
+
+    def _run_round_host(self, items):
+        m = self.model
+        for st, spec in items:
+            r = st.read
+            sc = r.scaling
+            if spec["rank_stride"] == 1:
+                rk = st.fwd_ranks
+                local_start = spec["rank_start"] - st.fwd_off
+            else:
+                rk = st.rc_ranks
+                local_start = spec["rank_start"] - st.rc_off
+            mv = native.viterbi_chunk(
+                rk, local_start, spec["rank_stride"], spec["n_kmers"],
+                r.event_means, spec["e_start"], spec["stride"],
+                spec["n_events"], sc.scale, sc.shift, sc.var,
+                r.events_per_base, m.level_mean, m.level_stdv,
+                m.level_log_stdv)
+            ev_idx, k_idx, ps = decode_viterbi_movements(
+                mv, mv.shape[0], spec["e_start"], spec["stride"],
+                spec["n_events"], spec["n_kmers"])
+            self._commit_chunk(st, spec, ev_idx, k_idx, ps)
+
+    # -- one lockstep round: one chunk per active read --------------------
+    def _run_round(self, active, host_max: int):
+        items = []          # (state, spec) per chunk
+        for st in active:
+            spec = self._next_chunk(st)
+            if spec is None:
+                st.done = True
+                continue
+            items.append((st, spec))
+        if not items:
+            return
+        self.stats["chunks"] += len(items)
+        if len(items) <= host_max:
+            # a round this small costs the host less than the device's
+            # two trips: the chunk DPs run on the host
+            self.stats["rounds_host"] += 1
+            self._run_round_host(items)
+            return
+        self.stats["rounds_device"] += 1
+        n = len(items)
+        spec_i32 = np.empty((n, 6), np.int32)
+        spec_f32 = np.empty((n, 6), np.float32)
+        for i, (st, spec) in enumerate(items):
+            sc = st.read.scaling
+            spec_i32[i] = (spec["rank_start"], spec["rank_stride"],
+                           spec["n_kmers"], st.ev_off + spec["e_start"],
+                           spec["stride"], spec["n_events"])
+            spec_f32[i] = (sc.scale, sc.shift, sc.var, *st.params)
+        max_path = viterbi_max_path(spec_i32[:, 2], spec_i32[:, 5])
+        dev = self.device
+        movs, n_steps = viterbi_cuda.viterbi_rounds(
+            h2d(spec_i32, dev), h2d(spec_f32, dev),
+            self._consts, self._rank_pool, self._ev_pool, *self._tables,
+            max_path, host_spec=spec_i32)
+        movs, n_steps = movs.cpu().numpy(), n_steps.cpu().numpy()
+        for i, (st, spec) in enumerate(items):
+            mv = unpack_movements(movs[i], int(n_steps[i]))
+            ev_idx, k_idx, ps = decode_viterbi_movements(
+                mv, int(n_steps[i]), spec["e_start"], spec["stride"],
+                spec["n_events"], spec["n_kmers"])
+            self._commit_chunk(st, spec, ev_idx, k_idx, ps)
+
+    def _next_chunk(self, st: _ReadState):
+        """Chunk spec for the read's cursor (eventalign.c:1370-1422), or
+        None when this segment is finished."""
+        k = self.k
+        fwd = st.forward
+        if not ((fwd and st.curr_start_event < st.last_event)
+                or (not fwd and st.curr_start_event > st.last_event)):
+            return None
+        pairs = st.pairs
+        ref_pos = pairs[:, 0]
+        end_pair_idx = _get_end_pair(ref_pos, st.curr_start_ref
+                                     + ALIGN_STRIDE, st.curr_pair_idx)
+        curr_end_ref = int(pairs[end_pair_idx, 0])
+        curr_end_read = int(pairs[end_pair_idx, 1])
+        r = st.read
+        if r.is_reverse:
+            curr_end_read = len(r.seq) - curr_end_read - k
+        s = st.curr_start_ref - st.ref_offset
+        l = curr_end_ref - st.curr_start_ref + 1
+        if l < 2 * k:
+            return None
+        e_stop = st.closest(curr_end_read)
+        if abs(st.curr_start_event - e_stop) < 2:
+            return None
+        stride = 1 if st.curr_start_event < e_stop else -1
+        # window kmer ranks: forward slice, or the rc pool walked backwards
+        # (rank[ki] = rc_full[L - s - k - ki], hmm.c:384-401)
+        L = len(st.ref_disamb)
+        if not r.is_reverse:
+            rank_start = st.fwd_off + s
+            rank_stride = 1
+        else:
+            rank_start = st.rc_off + (L - s - k)
+            rank_stride = -1
+        return dict(rank_start=rank_start, rank_stride=rank_stride,
+                    n_kmers=l - k + 1,
+                    e_start=st.curr_start_event, n_events=abs(
+                        st.curr_start_event - e_stop) + 1,
+                    stride=stride, seg_start_ref=st.curr_start_ref,
+                    end_pair_idx=end_pair_idx, win_s=s, win_l=l)
+
+    def _commit_chunk(self, st: _ReadState, spec, ev_idx, k_idx, ps):
+        """Emit records capped at OUTPUT_STRIDE and advance the cursor
+        (eventalign.c:1424-1521)."""
+        last_section = spec["end_pair_idx"] == st.pairs.shape[0] - 1
+        emit = (ps != 0) & (ev_idx != spec["e_start"])
+        if not last_section:
+            cum = np.cumsum(emit)
+            emit = emit & (cum <= OUTPUT_STRIDE)
+        idx = np.nonzero(emit)[0]
+        if idx.shape[0] == 0:
+            st.done = True
+            return
+        ref_positions = spec["seg_start_ref"] + k_idx[idx]
+        st.out_ref.append(ref_positions.astype(np.int64))
+        st.out_ev.append(ev_idx[idx].astype(np.int64))
+        st.out_st.append(ps[idx].astype(np.uint8))
+        last_event_output = int(ev_idx[idx[-1]])
+        last_ref_kmer_output = int(ref_positions[-1])
+        st.curr_start_event = last_event_output
+        st.curr_start_ref = last_ref_kmer_output
+        st.curr_pair_idx = _get_end_pair(st.pairs[:, 0], st.curr_start_ref,
+                                         st.curr_pair_idx)
 
 
 def run_eventalign(pipe, args, out=sys.stdout) -> None:
@@ -476,7 +898,7 @@ def run_eventalign(pipe, args, out=sys.stdout) -> None:
     collapse = getattr(args, "collapse_events", False)
     rna = pipe.opt.rna
     engine = EventalignEngine(pipe.model, region_start=pipe.clip_start,
-                              region_end=pipe.clip_end)
+                              region_end=pipe.clip_end, device=pipe.device)
     summary_fp = None
     if getattr(args, "summary", None):
         summary_fp = open(args.summary, "w")

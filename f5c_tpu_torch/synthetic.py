@@ -229,3 +229,94 @@ def rank_cases(rng, k: int) -> list[dict]:
         for rc in ([0, 0, 0], [1, 1, 1]):
             cases.append(case(ends, items, rc, sentinel))
     return cases
+
+
+def event_signals(rng, model, rna_model=None) -> dict:
+    """pA signals for the event detector's checks: {"dna": [...], "rna":
+    [...]}.  DNA: simulated reads of a few lengths (k-mers dwelling 6-12
+    samples), one signal of tiny values, whose prefix sums round (so a
+    parallel scan must fall back to sample order), and the densest
+    pattern found for the detector (a 15-sample motif repeated: about one
+    event every three samples; no signal was found that gives more).
+    RNA (with ``rna_model``): a transcript's k-mers emitted 3' to 5', as
+    tests/test_rna.py builds it."""
+    dna = []
+    for n in (40, 700, 3000, 12000):
+        seq = random_seq(rng, n + model.k - 1)
+        ranks = model.kmer_ranks(seq)
+        dwell = rng.integers(6, 13, ranks.shape[0])
+        mean = np.repeat(model.level_mean[ranks].astype(np.float64), dwell)
+        dna.append(rng.normal(mean, 1.2).astype(np.float32))
+    dna.append((rng.normal(0.0, 1.0, 20000) * 1e-3).astype(np.float32))
+    motif = np.array([81.2, 0.27, 116.51, 188.76, 195.11, 37.82, 109.5,
+                      31.15, 195.98, 164.45, 100.73, 74.41, 68.34, 138.61,
+                      16.56], np.float32)
+    dna.append(np.tile(motif, 1100) + rng.normal(0, 0.01, 16500).astype(
+        np.float32))
+    dna += [rng.uniform(60, 120, n).astype(np.float32) for n in (1, 5, 11)]
+    out = {"dna": dna, "rna": []}
+    if rna_model is not None:
+        seq = random_seq(rng, 400)
+        levels = rna_model.level_mean[rna_model.kmer_ranks(seq)[::-1]]
+        sig = np.repeat(levels, rng.integers(6, 14, levels.shape[0]))
+        out["rna"].append((sig + rng.normal(0, 1.0, sig.shape[0])).astype(
+            np.float32))
+    return out
+
+
+def viterbi_round(rng, model, n_chunks: int, n_ref=(12, 105),
+                  events_per_kmer=(0.5, 2.0)) -> dict:
+    """One lockstep round of eventalign chunks (layout: ops/hmm.py): each
+    chunk a random window of ``n_ref`` bases (a range) whose events
+    follow its k-mers with noise, its ranks forward or backward in the
+    rank pool and its events read with stride +1 or -1.  Returns the
+    pools, both specs and, per chunk, the arguments of
+    ``native.viterbi_chunk``."""
+    from .ops.hmm import viterbi_read_params
+
+    rk_parts, ev_parts, chunks = [], [], []
+    spec_i32 = np.zeros((n_chunks, 6), np.int32)
+    spec_f32 = np.zeros((n_chunks, 6), np.float32)
+    rk_off = ev_off = 0
+    for i in range(n_chunks):
+        seq = random_seq(rng, int(rng.integers(n_ref[0], n_ref[1] + 1)))
+        ranks = model.kmer_ranks(seq).astype(np.int32)
+        n_k = ranks.shape[0]
+        epk = rng.uniform(*events_per_kmer)
+        n_ev = max(int(n_k * epk), 2)
+        which = np.sort(rng.integers(0, n_k, n_ev))
+        means = (model.level_mean[ranks[which]]
+                 + rng.normal(0, 1.0, n_ev)).astype(np.float32)
+        pool = rng.uniform(60, 120, n_ev + 40).astype(np.float32)
+        stride = int(rng.choice([1, -1]))
+        if stride == 1:
+            e0 = 20
+            pool[e0:e0 + n_ev] = means
+        else:
+            pool[20:20 + n_ev] = means[::-1]
+            e0 = 20 + n_ev - 1
+        r_stride = int(rng.choice([1, -1]))
+        if r_stride == 1:
+            rk_parts.append(ranks)
+            r0 = 0
+        else:
+            rk_parts.append(ranks[::-1].copy())
+            r0 = n_k - 1
+        scale = float(rng.uniform(0.95, 1.05))
+        shift = float(rng.uniform(-1, 1))
+        var = float(rng.uniform(0.9, 1.3))
+        epb = float(rng.uniform(1.3, 3.0))
+        spec_i32[i] = (rk_off + r0, r_stride, n_k, ev_off + e0, stride,
+                       n_ev)
+        spec_f32[i] = (scale, shift, var, *viterbi_read_params(epb, var))
+        chunks.append(dict(ranks=rk_parts[-1], rank_start=r0,
+                           rank_stride=r_stride, n_kmers=n_k, ev_pool=pool,
+                           e_start=e0, stride=stride, n_events=n_ev,
+                           scale=scale, shift=shift, var=var,
+                           events_per_base=epb))
+        ev_parts.append(pool)
+        rk_off += n_k
+        ev_off += pool.shape[0]
+    return dict(rank_pool=np.concatenate(rk_parts).astype(np.int32),
+                ev_pool=np.concatenate(ev_parts).astype(np.float32),
+                spec_i32=spec_i32, spec_f32=spec_f32, chunks=chunks)

@@ -90,23 +90,117 @@ def test_cli_eventalign_golden(golden_dir, monkeypatch, windowed):
 
 
 @pytest.mark.parametrize("name", ["device", "python"])
-def test_unported_engine_is_an_error(golden_dir, monkeypatch, name):
+def test_lockstep_engines_match_native(golden_dir, monkeypatch, name):
+    """``F5C_TPU_EA_ENGINE=device`` and ``=python`` (on the CPU, the
+    Viterbi kernel's plain version and the host DP) write the native
+    engine's bytes.  An unknown engine is an error before any work."""
+    monkeypatch.setenv("F5C_TPU_EA_ENGINE", "native")
+    rc, out_n, sum_n = _eventalign(golden_dir, "engine_native")
+    assert rc == 0
     monkeypatch.setenv("F5C_TPU_EA_ENGINE", name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 "
-                                                  "item a"):
+    assert eventalign.engine_name() == name
+    rc, out, summary = _eventalign(golden_dir, f"engine_{name}")
+    assert rc == 0
+    for a, b in ((out, out_n), (summary, sum_n)):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
+    monkeypatch.setenv("F5C_TPU_EA_ENGINE", "viterbi")
+    with pytest.raises(ValueError, match="F5C_TPU_EA_ENGINE"):
         eventalign.engine_name()
-    rc, out, _ = _eventalign(golden_dir, f"engine_{name}")
+    rc, out, _ = _eventalign(golden_dir, "engine_bad")
     assert rc == 2 and not os.path.exists(out)
 
 
 def test_auto_engine_is_native(monkeypatch):
-    from f5c_tpu.models import builtin_model
+    """``auto`` is the native engine on every device, with no probe (the
+    JAX rule's pick, the device engine, lost end to end on the card:
+    PERF.md); ``python`` probes its host/device crossover, and
+    ``device`` runs every round through the kernel's wrapper."""
+    import torch
 
+    from f5c_tpu_torch.models import builtin_model
+
+    model = builtin_model("dna_r9_nucleotide")
     for name in ("auto", "native"):
         monkeypatch.setenv("F5C_TPU_EA_ENGINE", name)
-        engine = eventalign.EventalignEngine(
-            builtin_model("dna_r9_nucleotide"))
-        assert engine.engine == "native"
+        for dev in ("cpu", "cuda"):
+            engine = eventalign.EventalignEngine(
+                model, device=torch.device(dev))
+            assert engine.resolve() == "native"
+            assert engine.host_round_max is None      # nothing was probed
+    monkeypatch.setattr(eventalign, "measured_host_chunk_secs",
+                        lambda m: 1e-4)
+    monkeypatch.setattr(eventalign, "measured_dispatch_overhead",
+                        lambda d: 1e-3)
+    monkeypatch.setenv("F5C_TPU_EA_ENGINE", "python")
+    engine = eventalign.EventalignEngine(model)
+    assert engine.resolve() == "python" and engine.host_round_max == 20
+    monkeypatch.setenv("F5C_TPU_VIT_HOST_MAX", "7")
+    engine = eventalign.EventalignEngine(model)
+    assert engine.resolve() == "python" and engine.host_round_max == 7
+    monkeypatch.setenv("F5C_TPU_EA_ENGINE", "device")
+    monkeypatch.delenv("F5C_TPU_VIT_HOST_MAX")
+    engine = eventalign.EventalignEngine(model, device=torch.device("cuda"))
+    assert engine.resolve() == "device" and engine.host_round_max == 0
+
+
+def test_python_engine_is_refused_on_cuda(monkeypatch):
+    """The python engine runs chunk DPs on the host, so a run on a CUDA
+    device refuses it before any work: on the card every round goes to
+    the Viterbi kernel's wrapper."""
+    import torch
+
+    from f5c_tpu_torch.models import builtin_model
+
+    monkeypatch.setenv("F5C_TPU_EA_ENGINE", "python")
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match="cpu only"):
+        eventalign.engine_name(cuda)
+    with pytest.raises(ValueError, match="cpu only"):
+        eventalign.EventalignEngine(builtin_model("dna_r9_nucleotide"),
+                                    device=cuda)
+    assert eventalign.engine_name(torch.device("cpu")) == "python"
+
+
+def test_engines_agree_on_golden_records(golden_dir):
+    """The whole-read native loop, lockstep rounds on the host
+    (native.viterbi_chunk) and lockstep rounds through the Viterbi
+    kernel's plain version give identical records (the pattern of
+    tests/test_eventalign.py:72-94)."""
+    import torch
+
+    from f5c_tpu_torch.pipeline.runner import Options
+
+    dev = torch.device("cpu")
+    p = Pipeline(os.path.join(golden_dir, "reads.bam"),
+                 os.path.join(golden_dir, "genome.fa"),
+                 os.path.join(golden_dir, "reads.fasta"),
+                 Options(min_mapq=0, slow5_path=os.path.join(
+                     golden_dir, "signals.blow5")), dev)
+    batch = next(p.batches(load=False))
+    p.align_batch_waved(batch)
+    ok = [r for r in batch if not r.status and r.b2e_start is not None]
+    assert len(ok) == 6
+    refs = [p._fetch_ref_segment(r) for r in ok]
+    records = {}
+    for name, host_max in (("native", None), ("python", 10**9),
+                           ("device", 0)):
+        eng = eventalign.EventalignEngine(p.model, device=dev)
+        eng.engine = name
+        eng.host_round_max = host_max
+        records[name] = eng.realign_batch(ok, refs)
+        if name != "native":
+            rounds = eng.stats["rounds_host" if name == "python"
+                               else "rounds_device"]
+            assert rounds > 0 and eng.stats["chunks"] > 6
+    for r in ok:
+        a = records["native"][id(r)]
+        assert a.ref_position.shape[0] > 100
+        for other in ("python", "device"):
+            b = records[other][id(r)]
+            assert a.ref_position.tobytes() == b.ref_position.tobytes()
+            assert a.event_idx.tobytes() == b.event_idx.tobytes()
+            assert a.state.tobytes() == b.state.tobytes()
 
 
 def test_modules_import_no_jax():

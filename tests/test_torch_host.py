@@ -176,6 +176,45 @@ def test_native_disambiguate_and_meth_groups(seed):
               jax_native.collect_meth_groups(*args))
 
 
+@pytest.mark.parametrize("seed", [70, 71])
+def test_native_viterbi_chunk(seed):
+    """The port's binding of f5c_viterbi_chunk against the JAX package's:
+    the same movements on a synthetic round (both strides of ranks and
+    events, chunks of 12-105 bases)."""
+    rng = np.random.default_rng(seed)
+    model = builtin_model("dna_r9_nucleotide")
+    x = synthetic.viterbi_round(rng, model, 12)
+    for c in x["chunks"]:
+        args = (c["ranks"], c["rank_start"], c["rank_stride"],
+                c["n_kmers"], c["ev_pool"], c["e_start"], c["stride"],
+                c["n_events"], c["scale"], c["shift"], c["var"],
+                c["events_per_base"], model.level_mean, model.level_stdv,
+                model.level_log_stdv)
+        got = native.viterbi_chunk(*args)
+        assert got.shape[0] > c["n_events"] // 2
+        _same(got, jax_native.viterbi_chunk(*args))
+
+
+@pytest.mark.parametrize("rna", [False, True])
+def test_native_emit_resquiggle_tsv(rna):
+    """The port's binding of f5c_emit_resquiggle_tsv against the JAX
+    package's, unaligned k-mers included."""
+    rng = np.random.default_rng(80 + rna)
+    n_ev = 500
+    starts = np.cumsum(rng.integers(1, 9, n_ev)).astype(np.int64)
+    lens = rng.integers(1, 9, n_ev).astype(np.float32)
+    for n_kmers in (1, 37, 300):
+        b2e_start = np.sort(rng.integers(0, n_ev, n_kmers)).astype(np.int32)
+        b2e_stop = np.minimum(b2e_start + rng.integers(0, 3, n_kmers),
+                              n_ev - 1).astype(np.int32)
+        b2e_start[rng.random(n_kmers) < 0.1] = -1
+        args = ("read-" + str(n_kmers), n_kmers, rna, b2e_start, b2e_stop,
+                starts, lens)
+        got = native.emit_resquiggle_tsv(*args)
+        assert got.count("\n") == n_kmers
+        assert got == jax_native.emit_resquiggle_tsv(*args)
+
+
 def test_options_defaults():
     got = dataclasses.fields(port_runner.Options)
     want = dataclasses.fields(jax_runner.Options)
@@ -259,8 +298,8 @@ def test_eventalign_emitters(rc):
 
 def test_port_stands_alone(tmp_path):
     """A fresh interpreter imports every module of the port, runs
-    call-methylation and eventalign on the golden set on the CPU, and has
-    loaded no module of f5c_tpu and no jax."""
+    call-methylation, eventalign and resquiggle on the golden set on the
+    CPU, and has loaded no module of f5c_tpu and no jax."""
     code = f"""
 import importlib, os, pkgutil, sys
 import f5c_tpu_torch
@@ -277,6 +316,8 @@ args = ["--device", "cpu", "--min-mapq", "0", "-b", d["bam"], "-g",
 assert main(["call-methylation", *args, "-o", {str(tmp_path / "m.tsv")!r}]) == 0
 assert main(["eventalign", *args, "-o", {str(tmp_path / "e.tsv")!r},
              "--summary", {str(tmp_path / "s.tsv")!r}]) == 0
+assert main(["resquiggle", "--device", "cpu", d["reads"], "--slow5",
+             d["slow5"], "-o", {str(tmp_path / "r.tsv")!r}]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("f5c_tpu", "jax"))
 assert not bad, bad
 print(len(names))

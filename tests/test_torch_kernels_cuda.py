@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (csrc/abea.cu, csrc/hmm.cu; built with nvcc at first use).
+card (csrc/abea.cu, csrc/hmm.cu, csrc/events.cu, csrc/viterbi.cu; built
+with nvcc at first use).
 
 ABEA must be bit-identical (trace, band placement, start event, walk
 length and bytes); the fused HMM forward scores (window metadata in)
@@ -7,7 +8,8 @@ agree to ops/hmm.py's stated f32 tolerance, and the ranks its prologue
 computes (the rank probe) equal build_inputs' bit for bit.  Without a
 CUDA device every test here skips; run them on the card with ``python -m
 pytest tests/test_torch_kernels_cuda.py``; the windowed ABEA kernels of
-csrc/abea_ultra.cu are held to the same bits.
+csrc/abea_ultra.cu are held to the same bits, and the event detector and
+the chunk Viterbi to their plain versions and the host code bit for bit.
 """
 
 import numpy as np
@@ -189,3 +191,71 @@ def test_abea_window_kernels_match_plain(cuda, win):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def test_events_kernels_match_plain_and_native(cuda):
+    """The event detector (csrc/events.cu) on the golden signals and the
+    synthetic ones of synthetic.event_signals (tiny values whose prefix
+    sums round, the densest pattern, RNA), bit for bit its plain version
+    and native.detect_events."""
+    from f5c_tpu_torch import datasets, native
+    from f5c_tpu_torch.io.slow5 import Slow5File
+    from f5c_tpu_torch.ops import events_cuda, events_device
+
+    f = Slow5File(datasets.GOLDEN_SIGNALS_ZLIB)
+    sig = synthetic.event_signals(np.random.default_rng(17),
+                                  builtin_model("dna_r9_nucleotide"),
+                                  builtin_model("rna_r9_nucleotide"))
+    golden = [f.get(r).to_pa() for r in f.read_ids()]
+    for rna, pas in ((False, golden + sig["dna"]), (True, sig["rna"])):
+        off = np.zeros(len(pas) + 1, np.int64)
+        np.cumsum([p.shape[0] for p in pas], out=off[1:])
+        slab = torch.from_numpy(np.concatenate(pas)).to(cuda)
+        so = torch.from_numpy(off).to(cuda)
+        got = events_cuda.detect_events(slab, so, rna)
+        want = events_device.detect_events_plain(slab, so, rna)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        eo = got[0].cpu().numpy()
+        for i, p in enumerate(pas):
+            et = native.detect_events(p, rna=rna)
+            a, b = eo[i], eo[i + 1]
+            assert np.array_equal(got[1][a:b].cpu().numpy(), et.start)
+            for g, w in zip(got[2:], (et.length, et.mean, et.stdv)):
+                assert g[a:b].cpu().numpy().tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("table_cap", [None, 1])
+def test_viterbi_kernel_matches_plain_and_native(cuda, monkeypatch,
+                                                 table_cap):
+    """The chunk Viterbi (csrc/viterbi.cu) on a synthetic round of mixed
+    chunks, with the movement tables in shared memory and all in the
+    global scratch: the plain version's bytes, native.viterbi_chunk's
+    movements."""
+    from f5c_tpu_torch import native
+    from f5c_tpu_torch.ops import viterbi_cuda
+
+    if table_cap is not None:
+        monkeypatch.setattr(viterbi_cuda, "TABLE_SMEM_MAX", table_cap)
+    model = builtin_model("dna_r9_nucleotide")
+    x = synthetic.viterbi_round(np.random.default_rng(18), model, 200)
+    t = _on({k: v for k, v in x.items() if k != "chunks"}, cuda)
+    tables = [torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+              for v in (model.level_mean, model.level_stdv,
+                        model.level_log_stdv)]
+    mp = hmm.viterbi_max_path(x["spec_i32"][:, 2], x["spec_i32"][:, 5])
+    args = (t["spec_i32"], t["spec_f32"], hmm.viterbi_consts(),
+            t["rank_pool"], t["ev_pool"], *tables, mp)
+    got = viterbi_cuda.viterbi_rounds(*args)
+    want = hmm.viterbi_rounds_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    movs, ns = got[0].cpu().numpy(), got[1].cpu().numpy()
+    for i, c in enumerate(x["chunks"]):
+        mv = native.viterbi_chunk(
+            c["ranks"], c["rank_start"], c["rank_stride"], c["n_kmers"],
+            c["ev_pool"], c["e_start"], c["stride"], c["n_events"],
+            c["scale"], c["shift"], c["var"], c["events_per_base"],
+            model.level_mean, model.level_stdv, model.level_log_stdv)
+        assert np.array_equal(hmm.unpack_movements(movs[i], int(ns[i])), mv)
