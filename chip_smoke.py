@@ -59,7 +59,25 @@ Phases (each prints one line; any failure raises and exits nonzero):
    windows of the windowed run (the last one, from band ~786k, and a full
    one of 65,536 bands x 4 reads), and the HMM launches of that run held
    to theirs; the event detector held to native.detect_events and its
-   plain version on the 4 reads and timed; the unchunked kernels timed.
+   plain version on the 4 reads and timed; the unchunked kernels timed;
+7. pores: the synthetic R10 set (4 reads, full-size 9-mer tables:
+   f5c_tpu_torch.synthetic.r10_models / r10_dataset) through
+   call-methylation and eventalign --summary with the native and the
+   device re-alignment engine, and the synthetic RNA004 set through
+   eventalign --m6anet (chemistry from the BLOW5 header), each on the
+   card and with --device cpu: the same bytes (call-methylation's HMM
+   columns within f5c's tolerance); every K1, K4, K2 and K8 launch of the
+   card runs held to its plain version (K8 also to the host DP); then 512
+   reads of the R10 set on the card, K1, K4 and K2 at their first launch
+   (a full wave of 128 reads) and K8 at its largest round held to their
+   plain versions and timed with their bounds;
+8. chain: index -> call-methylation on the card (the golden set, whole
+   and as --shard 0/2 and 1/2) -> meth-freq (with and without -s) ->
+   freq-merge of the shards: the whole run's calls within f5c's
+   tolerance of meth.exp, the shards' rows those of the whole run, and
+   freq-merge of the shards equal to meth-freq of the whole run;
+9. profile_dir: call-methylation --profile-dir DIR on the card; the
+   torch.profiler trace in DIR names the fill, walk and HMM kernels.
 
 It prints a JSON line of the kernels (launches on the main path, max
 abs error against the plain version, ms (for K8 and K9 the kernels
@@ -88,6 +106,7 @@ import filecmp
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -99,7 +118,10 @@ COPIES = 85                 # 85 x 6 golden reads = 510 reads
 FLOAT_COLS = (4, 5, 6)      # meth-out-version 1: llr, ll_meth, ll_unmeth
 EA_FLOAT_COLS = (6, 7, 8, 10, 11, 12)    # tests/test_golden_e2e.py:104-125
 SUMMARY_FLOAT_COLS = (9, 10, 11, 12, 13)
+HMM_COLS_V2 = (5, 6, 7)     # meth-out-version 2: llr, ll_meth, ll_unmeth
 FORCE_BUDGET, FORCE_WIN = 1_000_000, 300  # every golden read windowed
+K9_WAVE_READS = 512         # [pores]: the R10 set timed at a full wave
+K9_WAVE_MIN = 128           # reads in its first ABEA launch (a wave)
 SYNTH_WIN = 1000
 EVENTS_PAIRS = 10           # --profile: golden x85 host/device events pairs
 DEVICE_EVENTS = ("--events-engine", "device")   # auto is host
@@ -206,15 +228,23 @@ def run_cli(paths: dict, out: str, summary: str | None = None,
     eventalign --summary run (with ``ea_engine`` as F5C_TPU_EA_ENGINE);
     ``extra`` are more options; returns (wall seconds, processed reads,
     stage-seconds line)."""
-    from f5c_tpu_torch import cli
-
-    argv = ["--device", "cuda", "--min-mapq", "0", "-b", paths["bam"], "-g",
-            paths["genome"], "-r", paths["reads"], "--slow5", paths["slow5"],
-            "-o", out, *extra]
+    argv = ["--device", "cuda", *data_argv(paths, out), *extra]
     if summary is None:
         argv = ["call-methylation", "--meth-out-version", "1", *argv]
     else:
         argv = ["eventalign", "--summary", summary, *argv]
+    wall, err = run_argv(argv, ea_engine)
+    processed = int(err.split("processed: ")[1].split(";")[0])
+    stages = [ln for ln in err.splitlines() if "stage seconds" in ln]
+    return wall, processed, stages[-1].split("stage seconds: ")[1]
+
+
+def run_argv(argv, ea_engine: str | None = None) -> tuple[float, str]:
+    """One ``f5c_tpu_torch.cli.main(argv)`` (with ``ea_engine`` as
+    F5C_TPU_EA_ENGINE); raises unless it exits 0.  Returns (wall seconds,
+    its stderr)."""
+    from f5c_tpu_torch import cli
+
     saved = os.environ.get("F5C_TPU_EA_ENGINE")
     if ea_engine is not None:
         os.environ["F5C_TPU_EA_ENGINE"] = ea_engine
@@ -231,9 +261,12 @@ def run_cli(paths: dict, out: str, summary: str | None = None,
                 os.environ["F5C_TPU_EA_ENGINE"] = saved
     if rc != 0:
         raise RuntimeError(f"{argv[0]} exited {rc}")
-    processed = int(cap.text.split("processed: ")[1].split(";")[0])
-    stages = [ln for ln in cap.text.splitlines() if "stage seconds" in ln]
-    return wall, processed, stages[-1].split("stage seconds: ")[1]
+    return wall, cap.text
+
+
+def data_argv(d: dict, out: str) -> list:
+    return ["--min-mapq", "0", "-b", d["bam"], "-g", d["genome"], "-r",
+            d["reads"], "--slow5", d["slow5"], "-o", out]
 
 
 def deviant_rows(out_path: str, truth_path: str, copies: int = 0) -> int:
@@ -903,6 +936,272 @@ def hold_ultra_events(torch, calls) -> dict:
                 events_vs_native_reads=held["events"])
 
 
+def same_bytes(*pairs) -> bool:
+    return all(filecmp.cmp(a, b, shallow=False) for a, b in pairs)
+
+
+def pores_phase(tmp, torch, card, kernel_mods, reset_counts,
+                read_counts) -> dict:
+    """Phase 7, [pores]: the synthetic R10 9-mer set of
+    tests/test_torch_pores.py through call-methylation and eventalign
+    --summary (native and device re-alignment engines) on the card, and
+    the RNA004 set of tests/test_torch_pores_rna.py through eventalign
+    --m6anet (chemistry from the BLOW5 header): each run's K1, K4, K2 and
+    K8 launches held to their plain versions (K8 also to the host DP),
+    its output to the same run with --device cpu (bytes; the HMM columns
+    within f5c's tolerance); then the k = 9 launches timed at a full wave
+    (``k9_full_wave``).  Returns the errors against the plain versions."""
+    from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.models import load_model_file
+
+    t_phase = time.time()
+    nuc_path, cpg_path = synthetic.r10_models(os.path.join(tmp, "r10m"))
+    r10 = synthetic.r10_dataset(os.path.join(tmp, "r10"), nuc_path)
+    rna = synthetic.rna004_dataset(os.path.join(tmp, "rna004"))
+    recal = ["--min-recalib-events", "100"]
+    r10_meth = ["--pore", "r10", "--kmer-model", nuc_path, "--meth-model",
+                cpg_path, *recal]
+    r10_ea = ["--pore", "r10", "--kmer-model", nuc_path, *recal]
+    runs = {
+        # name: (command, dataset, options, re-alignment engine)
+        "meth": ("call-methylation", r10, r10_meth, None),
+        "ea_native": ("eventalign", r10, r10_ea, "native"),
+        "ea_device": ("eventalign", r10, r10_ea, "device"),
+        "m6anet": ("eventalign", rna, ["--m6anet", *recal], None),
+    }
+    calls, counts, walls, out = {}, {}, {}, {}
+    for name, (cmd, d, opts, engine) in runs.items():
+        for device in ("cuda", "cpu"):
+            if device == "cpu" and name == "ea_device":
+                continue        # the CPU run of the native engine serves
+            o = os.path.join(tmp, f"pores_{name}_{device}.tsv")
+            extra = (["--summary", o + ".summary"] if cmd == "eventalign"
+                     else [])
+            reset_counts()
+            spy = Spy(kernel_mods) if device == "cuda" else None
+            try:
+                walls[name, device] = run_argv(
+                    [cmd, *data_argv(d, o), *opts, *extra, "--device",
+                     device], ea_engine=engine)[0]
+            finally:
+                if spy is not None:
+                    spy.close()
+            if spy is not None:
+                counts[name] = read_counts()
+                calls[name] = spy.calls
+            out[name, device] = o
+    err = {}
+    for name in runs:
+        for k, v in compare_launches(calls[name], torch).items():
+            err[k] = max(err.get(k, 0), v)
+    held = hold_native({"viterbi": calls["ea_device"]["viterbi"]},
+                       load_model_file(nuc_path))
+    dev_rows = tolerant_bad(read_text(out["meth", "cuda"]),
+                            read_text(out["meth", "cpu"]), HMM_COLS_V2)
+    ea_files = [(out[n, "cuda"] + x, out["ea_native", "cpu"] + x)
+                for n in ("ea_native", "ea_device") for x in ("",
+                                                               ".summary")]
+    m6a_files = [(out["m6anet", "cuda"] + x, out["m6anet", "cpu"] + x)
+                 for x in ("", ".summary")]
+    same_ea, same_m6a = same_bytes(*ea_files), same_bytes(*m6a_files)
+    launched = {
+        "meth": ("abea_fill", "abea_walk", "hmm_forward"),
+        "ea_native": ("abea_fill", "abea_walk"),
+        "ea_device": ("abea_fill", "abea_walk", "viterbi"),
+        "m6anet": ("abea_fill", "abea_walk")}
+    missing = [(n, k) for n, ks in launched.items() for k in ks
+               if counts[n][k] == 0]
+    k = int(calls["meth"]["hmm_forward"][0][0][7])
+    say("pores", card=card.replace(" ", "_"), k=k,
+        cpg_levels=int(calls["meth"]["hmm_forward"][0][0][4].shape[0]),
+        vs_plain=err, viterbi_chunks_vs_host=held["viterbi"],
+        meth_rows=len(read_text(out["meth", "cuda"]).splitlines()) - 1,
+        meth_deviant_rows_vs_cpu=dev_rows, eventalign_same_bytes=same_ea,
+        m6anet_same_bytes=same_m6a,
+        launches={n: {kk: c[kk] for kk in launched[n]}
+                  for n, c in counts.items()},
+        walls_s={f"{n}_{dv}": round(w, 3) for (n, dv), w in walls.items()},
+        seconds=f"{time.time() - t_phase:.1f}")
+    if (k != 9 or dev_rows or not same_ea or not same_m6a or missing
+            or any(err.get(n, 0) != 0 for n in (
+                "abea_fill", "abea_walk", "hmm_ranks", "viterbi"))):
+        raise AssertionError(f"pores phase failed (launches missing: "
+                             f"{missing})")
+    del calls
+    wave = k9_full_wave(tmp, torch, card, kernel_mods, nuc_path, r10_meth,
+                        r10_ea)
+    for name, e in wave["vs_plain"].items():
+        err[name] = max(err.get(name, 0), e)
+    return err
+
+
+def k9_full_wave(tmp, torch, card, kernel_mods, nuc_path, meth_opts,
+                 ea_opts) -> dict:
+    """The k = 9 launches at a full wave: K9_WAVE_READS synthetic R10 reads
+    (lengths as in the 4-read set) through call-methylation and the
+    device-engine eventalign on the card; K1, K4 and K2 at the first
+    launch (WAVE reads) and K8 at the largest round, each held to its
+    plain version, timed (K8's kernels alone, as in phase 5) and bounded.
+    Prints [pores_k9_wave]; returns {"vs_plain": {name: max abs err}}."""
+    import numpy as np
+
+    from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.ops import (_build, abea, abea_cuda, hmm, hmm_cuda,
+                                   hmm_meta, viterbi_cuda)
+
+    t_phase = time.time()
+    lengths = np.random.default_rng(11).integers(700, 1401, K9_WAVE_READS)
+    d = synthetic.r10_dataset(os.path.join(tmp, "r10_wave"), nuc_path,
+                              lengths=lengths)
+    t_data = time.time() - t_phase
+    spy, walls = Spy(kernel_mods), {}
+    try:
+        walls["meth"] = run_argv(["call-methylation", *data_argv(
+            d, os.path.join(tmp, "wave_meth.tsv")), *meth_opts])[0]
+        out_ea = os.path.join(tmp, "wave_ea.tsv")
+        walls["ea_device"] = run_argv(
+            ["eventalign", *data_argv(d, out_ea), *ea_opts, "--summary",
+             out_ea + ".summary"], ea_engine="device")[0]
+    finally:
+        spy.close()
+    fill_a, fill_kw = spy.calls["abea_fill"][0]
+    walk_a, walk_kw = spy.calls["abea_walk"][0]
+    hmm_a, hmm_kw = spy.calls["hmm_forward"][0]
+    vit_a, vit_kw = max(spy.calls["viterbi"],
+                        key=lambda c: int(c[0][0].shape[0]))
+    del spy
+    kernels = {
+        "abea_fill": ((fill_a, fill_kw),
+                      lambda: abea_cuda.abea_fill(*fill_a, **fill_kw),
+                      lambda: abea.abea_fill_plain(*fill_a[:11])),
+        "abea_walk": ((walk_a, walk_kw),
+                      lambda: abea_cuda.abea_walk(*walk_a, **walk_kw),
+                      lambda: abea.abea_walk_plain(*walk_a[:6])),
+        "hmm_forward": ((hmm_a, hmm_kw),
+                        lambda: hmm_cuda.hmm_forward_meta(*hmm_a, **hmm_kw),
+                        lambda: hmm_meta.hmm_forward_meta_plain(*hmm_a)),
+        "viterbi": ((vit_a, vit_kw),
+                    lambda: viterbi_cuda.viterbi_rounds(*vit_a, **vit_kw),
+                    lambda: hmm.viterbi_rounds_plain(*vit_a[:9])),
+    }
+    timed, err = {}, {}
+    for name, ((args, kw), kern, plain) in kernels.items():
+        got = kern()
+        want, plain_ms = run_once(torch, plain)
+        if name == "hmm_forward":
+            err[name], err["hmm_ranks"] = hold_hmm(torch, args, kw)
+        else:
+            err[name] = _int_err(got, want)
+        ms = (kernel_ms(torch, _build, kern, 20) if name == "viterbi"
+              else time_ms(torch, kern, 20))
+        bound, by = bound_of(name, args, kw, got)
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by)
+    # the rates phase 5 gives at k = 6: per band of the longest read, per
+    # step of the longest walk, per warp-step of an SM sub-partition
+    chain = int((fill_a[10][1:] - fill_a[10][:-1]).max())
+    steps = int(abea_cuda.abea_walk(*walk_a, **walk_kw)[1].max())
+    hmm_work = hmm_shape(hmm_a, hmm_kw)
+    smsp = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    vit_spec = vit_kw.get("host_spec")
+    say("pores_k9_wave", card=card.replace(" ", "_"), reads=len(lengths),
+        launch_reads=int(fill_a[2].shape[0]), bands=fill_a[11],
+        chain_bands=chain, walk_steps=steps,
+        **{f"hmm_{k}": v for k, v in hmm_work.items()},
+        hmm_max_km=hmm_kw["max_km"], viterbi_chunks=int(vit_a[0].shape[0]),
+        viterbi_cells=int((vit_spec[:, 2].astype(np.int64)
+                           * vit_spec[:, 5]).sum()),
+        vs_plain=err, k9_ms=json.dumps(timed, separators=(",", ":")),
+        fill_ns_per_band=f"{1e6 * timed['abea_fill']['ms'] / chain:.1f}",
+        walk_ns_per_step=f"{1e6 * timed['abea_walk']['ms'] / steps:.1f}",
+        hmm_ns_per_warp_step=(
+            f"{1e6 * timed['hmm_forward']['ms'] * smsp
+                / hmm_work['warp_steps']:.1f}"),
+        walls_s={n: round(w, 3) for n, w in walls.items()},
+        data_s=f"{t_data:.1f}", seconds=f"{time.time() - t_phase:.1f}")
+    if (int(fill_a[2].shape[0]) < K9_WAVE_MIN or any(
+            err[n] != 0 for n in ("abea_fill", "abea_walk", "hmm_ranks",
+                                  "viterbi"))):
+        raise AssertionError("pores: the k = 9 wave is not full, or a "
+                             "kernel differs from its plain version")
+    return {"vs_plain": err}
+
+
+def chain_phase(tmp, card, source, truth, reset_counts, read_counts) -> None:
+    """Phase 8, [chain]: ``index`` -> ``call-methylation`` on the card (the
+    golden set; the whole run and ``--shard 0/2``, ``1/2``) ->
+    ``meth-freq`` (with and without -s) -> ``freq-merge`` of the two
+    shards: the whole run's calls within f5c's tolerance of meth.exp, the
+    shards' rows those of the whole run, and freq-merge of the shards
+    equal to meth-freq of the whole run.  (The host steps are held to
+    the JAX package's bytes by tests/test_torch_subcommands.py.)"""
+    from f5c_tpu_torch.datasets import ROLES
+
+    t_phase = time.time()
+    d, counts = {}, {}
+    os.makedirs(os.path.join(tmp, "chain"))
+    for role, src in source.items():
+        d[role] = os.path.join(tmp, "chain", ROLES[role])
+        shutil.copy(src, d[role])
+    run_argv(["index", d["reads"], "--slow5", d["slow5"]])
+
+    def f(name):
+        return os.path.join(tmp, "chain", name)
+
+    for tag, shard in (("all", []), ("s0", ["--shard", "0/2"]),
+                       ("s1", ["--shard", "1/2"])):
+        reset_counts()
+        run_argv(["call-methylation", "--meth-out-version", "1",
+                  *data_argv(d, f(f"meth_{tag}.tsv")), *shard])
+        counts[tag] = read_counts()
+        run_argv(["meth-freq", "-i", f(f"meth_{tag}.tsv"), "-o",
+                  f(f"freq_{tag}.tsv")])
+    run_argv(["meth-freq", "-s", "-i", f("meth_all.tsv"), "-o",
+              f("freq_split.tsv")])
+    run_argv(["freq-merge", f("freq_s0.tsv"), f("freq_s1.tsv"), "-o",
+              f("merged.tsv")])
+    meth_bad = deviant_rows(f("meth_all.tsv"), truth)
+    rows = {t: sorted(read_text(f(f"meth_{t}.tsv")).splitlines()[1:])
+            for t in ("all", "s0", "s1")}
+    shards_are_whole = (sorted(rows["s0"] + rows["s1"]) == rows["all"]
+                        and rows["s0"] != [] and rows["s1"] != [])
+    merge_is_whole = same_bytes((f("merged.tsv"), f("freq_all.tsv")))
+    sites = len(read_text(f("freq_all.tsv")).splitlines()) - 1
+    split_sites = len(read_text(f("freq_split.tsv")).splitlines()) - 1
+    kernels = [counts[t][k] for t in counts
+               for k in ("abea_fill", "abea_walk", "hmm_forward")]
+    say("chain", card=card.replace(" ", "_"), meth_deviant_rows=meth_bad,
+        shard_rows_are_whole=shards_are_whole,
+        merge_of_shards_is_whole=merge_is_whole, sites=sites,
+        split_sites=split_sites,
+        card_launches={t: {k: counts[t][k] for k in (
+            "abea_fill", "abea_walk", "hmm_forward")} for t in counts},
+        seconds=f"{time.time() - t_phase:.1f}")
+    if (meth_bad or not shards_are_whole or not merge_is_whole
+            or sites < 10 or split_sites < sites or min(kernels) == 0):
+        raise AssertionError("chain phase failed")
+
+
+def profile_dir_phase(tmp, golden) -> None:
+    """Phase 9, [profile_dir]: one call-methylation --profile-dir DIR on the
+    card; DIR holds a torch.profiler trace that names K1, K4 and K2."""
+    import glob
+
+    prof = os.path.join(tmp, "profile_dir")
+    wall, _ = run_argv(["call-methylation",
+                        *data_argv(golden, os.path.join(tmp, "prof.tsv")),
+                        "--profile-dir", prof])
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    text = read_text(traces[0]) if len(traces) == 1 else ""
+    names = {n: text.count(n) for n in ("abea_fill_kernel",
+                                        "abea_walk_kernel",
+                                        "hmm_forward_meta_kernel")}
+    say("profile_dir", traces=len(traces), wall_s=f"{wall:.3f}",
+        trace_mb=f"{len(text) / 2**20:.2f}", kernel_mentions=names)
+    if len(traces) != 1 or min(names.values()) == 0:
+        raise AssertionError("profile_dir: no trace, or a kernel missing")
+
+
 def run_once(torch, fn):
     """(fn(), its ms between CUDA events): one run of a plain version at a
     shape where it is too slow to repeat."""
@@ -1518,10 +1817,17 @@ def main(argv: list[str]) -> int:
             read_counts)
         timings.update(ultra_timings)
 
+        # 7-9. other pore configurations, the host subcommands' chain and
+        # --profile-dir
+        err_pores = pores_phase(tmp, torch, card, kernel_mods, reset_counts,
+                                read_counts)
+        chain_phase(tmp, card, source, truth, reset_counts, read_counts)
+        profile_dir_phase(tmp, golden)
+
         errs = {name: max(e.get(name, 0) for e in (
             err_golden, err_synth, err_scale, err_golden_win,
             err_synth_win, err_mixed, err_ultra, err_vit, err_big,
-            err_vit_scale, k8k9["errors"], k8k9["global_tables"]))
+            err_vit_scale, k8k9["errors"], k8k9["global_tables"], err_pores))
             for name in KERNELS}
         kernels = []
         for name, (ms, plain_ms, bound_ms, bound_by) in timings.items():

@@ -1,30 +1,42 @@
-"""f5c-tpu-torch command line: ``call-methylation``, ``eventalign`` and
-``resquiggle`` on a CUDA card.
+"""f5c-tpu-torch command line: ``index``, ``call-methylation``,
+``eventalign``, ``resquiggle``, ``meth-freq``, ``freq-merge`` and
+``fast5-to-blow5``, the device steps on a CUDA card.
 
+    python -m f5c_tpu_torch.cli index reads.fasta [--slow5 signals.blow5]
+        [-d fast5_dir ...] [-s sequencing_summary.txt ...] [--iop N]
     python -m f5c_tpu_torch.cli call-methylation -b reads.bam -g genome.fa \\
         -r reads.fasta --slow5 signals.blow5 [-o out.tsv] \\
-        [--meth-out-version {1,2}] [--device {cuda,cpu}]
+        [--meth-out-version {1,2}] [--device {cuda,cpu}] [--profile-dir DIR]
     python -m f5c_tpu_torch.cli eventalign -b reads.bam -g genome.fa \\
         -r reads.fasta --slow5 signals.blow5 [-o out.tsv] \\
         [--summary summary.tsv] [--sam | --paf | --m6anet] [--device ...]
     python -m f5c_tpu_torch.cli resquiggle reads.fastq --slow5 signals.blow5
         [-c] [-o out.tsv] [--device ...]
+    python -m f5c_tpu_torch.cli meth-freq -i meth.tsv [-c 2.5] [-s] [-o out]
+    python -m f5c_tpu_torch.cli freq-merge freq1.tsv freq2.tsv ... [-o out]
+    python -m f5c_tpu_torch.cli fast5-to-blow5 -d fast5_dir -o out.blow5
 
-The options are the JAX package's (``f5c_tpu/cli.py``
-``_add_common_meth_args``, its eventalign options and its resquiggle
-table, copied here); ``--device`` selects the torch device and
+The options are the JAX package's (``f5c_tpu/cli.py``: its option
+tables, copied here); ``--device`` selects the torch device and
 ``--events-engine`` where events are detected (``host``: the native
 detector; ``device``: the event kernels, or with ``--device cpu`` their
-plain version; ``auto``: ``host``).  The
-default is ``cuda`` and a run with no card is an error: ``--device cpu``
-is the explicit request for the kernels' plain PyTorch versions on the
-host.  The other subcommands are not ported yet (ROADMAP.md).
+plain version; ``auto``: ``host``).  The default device is ``cuda`` and a
+run with no card is an error: ``--device cpu`` is the explicit request
+for the kernels' plain PyTorch versions on the host.  ``index``,
+``meth-freq``, ``freq-merge`` and ``fast5-to-blow5`` run on the host
+only.  ``--profile-dir DIR`` writes a torch.profiler trace of a
+call-methylation or eventalign run to DIR (TensorBoard layout; the card's
+activity, or the host's with ``--device cpu``).  ``--dist`` is not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
+import time
 
 __version__ = "0.1.0"
 
@@ -82,8 +94,8 @@ def _add_common_meth_args(p):
     p.add_argument("--dist-nprocs", type=int, default=None,
                    help="total process count for manual --dist launches")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
-                   help="write a JAX profiler trace of the run to DIR "
-                        "(view with TensorBoard/XProf)")
+                   help="write a torch.profiler trace of the run to DIR "
+                        "(view with TensorBoard)")
     p.add_argument("--print-events", action="store_true",
                    help="dump the event table (debug oracle)")
     p.add_argument("--print-banded-aln", action="store_true",
@@ -243,44 +255,154 @@ def _add_resquiggle_args(p) -> None:
     _add_cuda_compat_args(p, full=False)
 
 
+def _maybe_profile(args, device):
+    """torch.profiler trace context for --profile-dir (the counterpart of
+    the JAX package's jax.profiler trace, f5c_tpu/cli.py:210-220): the
+    card's kernels and copies on a CUDA device, the host's operators with
+    --device cpu, written in TensorBoard's layout when the run ends."""
+    d = getattr(args, "profile_dir", None)
+    if not d:
+        return contextlib.nullcontext()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activity = (ProfilerActivity.CUDA if device.type == "cuda"
+                else ProfilerActivity.CPU)
+    return profile(activities=[activity],
+                   on_trace_ready=tensorboard_trace_handler(d))
+
+
+def _index(args) -> int:
+    from .io.readdb import ReadDB
+
+    t0 = time.time()
+    db = ReadDB(args.reads)
+    db.build(fast5_dirs=args.directory or None, slow5_path=args.slow5,
+             sequencing_summary=args.summary or None, iop=args.iop)
+    if args.slow5:
+        from .io.slow5 import Slow5File
+
+        Slow5File(args.slow5).close()   # builds <file>.idx
+    print(f"[f5c-tpu-torch index] indexed {len(db._fa.entries)} reads "
+          f"({len(db._paths or {})} with signal paths) "
+          f"in {time.time()-t0:.1f}s", file=sys.stderr)
+    return 0
+
+
+def _fast5_to_blow5(args) -> int:
+    from .io.fast5 import Fast5File
+    from .io.slow5 import Slow5File, write_blow5
+
+    t0 = time.time()
+
+    def signals():
+        for d in args.directory:
+            for root, _dirs, files in os.walk(d):
+                for fn in sorted(files):
+                    if not fn.endswith(".fast5"):
+                        continue
+                    try:
+                        with Fast5File(os.path.join(root, fn)) as f5:
+                            for rid in f5.read_ids():
+                                yield f5.get_signal(rid)
+                    except OSError as e:
+                        print(f"[f5c-tpu-torch] skipping {fn}: {e}",
+                              file=sys.stderr)
+
+    write_blow5(args.output, signals())
+    Slow5File(args.output).close()   # build the .idx
+    n_idx = len(Slow5File(args.output,
+                          create_index_if_missing=False).read_ids())
+    print(f"[f5c-tpu-torch] wrote {n_idx} reads to {args.output} "
+          f"(+.idx) in {time.time()-t0:.1f}s", file=sys.stderr)
+    return 0
+
+
+def _meth_freq(args) -> int:
+    from .pipeline.freq import meth_freq
+
+    fh = sys.stdin if args.input == "-" else open(args.input)
+    out = _out_fh(args.output)
+    try:
+        meth_freq(fh, call_threshold=args.call_threshold,
+                  split_groups=args.split_groups, out=out)
+    finally:
+        if fh is not sys.stdin:
+            fh.close()
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def _freq_merge(args) -> int:
+    from .pipeline.freq import freq_merge
+
+    out = _out_fh(args.output)
+    try:
+        freq_merge(args.inputs, out=out)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     ap = argparse.ArgumentParser(
         prog="f5c-tpu-torch",
         description="nanopore signal analysis on PyTorch and CUDA "
-                    "(call-methylation, eventalign, resquiggle)")
+                    "(index / call-methylation / eventalign / resquiggle / "
+                    "meth-freq / freq-merge / fast5-to-blow5)")
     ap.add_argument("--version", action="version",
                     version=f"f5c-tpu-torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("index", help="build read index (readdb)")
+    p.add_argument("reads", help="reads FASTA/FASTQ")
+    p.add_argument("-d", "--directory", action="append", default=[],
+                   help="FAST5 directory (repeatable)")
+    p.add_argument("--slow5", help="SLOW5/BLOW5 signal file")
+    p.add_argument("-s", "--summary", action="append", default=[],
+                   help="basecaller sequencing summary (repeatable; "
+                        "avoids the FAST5 scan)")
+    p.add_argument("--iop", type=int, default=1,
+                   help="parallel FAST5 scan processes")
     p = sub.add_parser("call-methylation", help="CpG methylation calling")
     _add_common_meth_args(p)
     p.add_argument("--meth-out-version", type=int, choices=[1, 2], default=2)
     p = sub.add_parser("eventalign", help="signal-to-reference alignment")
     _add_common_meth_args(p)
     _add_eventalign_args(p)
+    p = sub.add_parser("fast5-to-blow5",
+                       help="convert FAST5 files to one BLOW5 "
+                            "(zlib records + svb-zd signals)")
+    p.add_argument("-d", "--directory", action="append", required=True,
+                   help="FAST5 directory (repeatable)")
+    p.add_argument("-o", "--output", required=True, help="output .blow5")
+    p = sub.add_parser("meth-freq", help="per-site methylation frequency")
+    p.add_argument("-i", "--input", default="-")
+    p.add_argument("-c", "--call-threshold", type=float, default=2.5)
+    p.add_argument("-s", "--split-groups", action="store_true")
+    p.add_argument("-o", "--output", default="-")
+    p = sub.add_parser("freq-merge", help="merge meth-freq outputs")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("-o", "--output", default="-")
     p = sub.add_parser("resquiggle", help="signal-to-read alignment")
     _add_resquiggle_args(p)
     args = ap.parse_args(argv)
 
-    unported = [flag for flag, given in (
-        ("--dist", getattr(args, "dist", False)),
-        ("--profile-dir", getattr(args, "profile_dir", None)))
-        if given]
-    if unported:
-        ap.error(f"{', '.join(unported)}: not ported to f5c_tpu_torch yet "
-                 "(ROADMAP.md)")
-    if args.events_engine == "device" and any(
-            getattr(args, n, None) for n in ("print_raw", "write_dump",
-                                             "read_dump")):
-        ap.error("--events-engine device: --print-raw, --write-dump and "
-                 "--read-dump load read by read with the host detector")
+    host_only = {"index": _index, "fast5-to-blow5": _fast5_to_blow5,
+                 "meth-freq": _meth_freq, "freq-merge": _freq_merge}
+    if args.cmd in host_only:
+        return host_only[args.cmd](args)
+    if getattr(args, "dist", False):
+        ap.error("--dist: not ported to f5c_tpu_torch yet (ROADMAP.md)")
     knobs = [n for n in ("disable_cuda", "cuda_dev_id", "cuda_mem_frac",
                          "cuda_block_size", "cuda_max_lf", "cuda_avg_epk",
                          "cuda_max_epk") if getattr(args, n, None) is not None]
     if knobs:
         print("f5c-tpu-torch: warning: --"
               + ", --".join(n.replace("_", "-") for n in knobs)
-              + ": accepted for f5c compatibility, no effect yet",
+              + ": accepted for f5c compatibility, no effect",
               file=sys.stderr)
 
     from .backend import resolve_device
@@ -308,12 +430,13 @@ def main(argv=None) -> int:
     pipe = _make_pipeline(args, device)
     out = _out_fh(args.output)
     try:
-        if args.cmd == "eventalign":
-            from .pipeline.eventalign import run_eventalign
+        with _maybe_profile(args, device):
+            if args.cmd == "eventalign":
+                from .pipeline.eventalign import run_eventalign
 
-            run_eventalign(pipe, args, out=out)
-        else:
-            pipe.call_methylation(out=out)
+                run_eventalign(pipe, args, out=out)
+            else:
+                pipe.call_methylation(out=out)
     finally:
         if out is not sys.stdout:
             out.close()

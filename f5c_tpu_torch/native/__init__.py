@@ -1,6 +1,7 @@
 """Native host runtime bindings (ctypes): event detection, k-mer ranks,
 MoM scalings, the walk decode + QC + postalign, CpG group collection,
-eventalign re-alignment and the TSV renderers, in C++ (``src/f5chost.cpp``,
+eventalign re-alignment, the TSV renderers and the meth-freq accumulator
+and freq-merge, in C++ (``src/f5chost.cpp``,
 the reference's src/events.c, src/align.c, src/meth.c, src/eventalign.c).
 
 The port's copy of ``f5c_tpu/native``.  The library is compiled with g++
@@ -171,6 +172,29 @@ def _declare(lib):
         _i8p, _i64, _i64, _i32p, _i32p, _i64, _int, _i64,
         _i32p, _i64, _int,
         _i64p, _i64p, _i32p, _i64p, _i64p, _i64p, _i64p]
+    # meth-freq / freq-merge (pipeline/freq.py)
+    lib.f5c_freq_new.restype = ctypes.c_void_p
+    lib.f5c_freq_new.argtypes = [_int, _int, ctypes.c_double]
+    lib.f5c_freq_accumulate.restype = _i64
+    lib.f5c_freq_accumulate.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                        _i64]
+    lib.f5c_freq_rejects.restype = _i64
+    lib.f5c_freq_rejects.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(_i64), ctypes.POINTER(ctypes.c_void_p)]
+    lib.f5c_freq_update.restype = None
+    lib.f5c_freq_update.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, _i64, _i64, _i64, _i32,
+        ctypes.c_char_p, _i64, _i64, _i64]
+    lib.f5c_freq_emit.restype = _i64
+    lib.f5c_freq_emit.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.c_void_p)]
+    lib.f5c_freq_free.restype = None
+    lib.f5c_freq_free.argtypes = [ctypes.c_void_p]
+    lib.f5c_freq_merge.restype = _i64
+    lib.f5c_freq_merge.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), _i64, _int,
+        ctypes.POINTER(_i64), ctypes.POINTER(_i64)]
 
 
 def get_lib():

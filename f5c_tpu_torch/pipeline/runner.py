@@ -589,7 +589,7 @@ class Pipeline:
         """The plain (BAM-ordered) loader, inline per read on the host.
         Only the runs that print or dump raw signals take it (every other
         run loads in ``align_batch_waved``); they need record order, so
-        they detect events on the host (``_events_engine``)."""
+        they detect events on the host (``batches_prefetched``)."""
         t0 = time.time()
         for r in batch:
             qname, data = _worker_load((r.qname, r.signal_path, r.seq,
@@ -606,18 +606,15 @@ class Pipeline:
         ``auto``, which is ``host`` on every device: on an H100 the device
         engine won no configuration measured end to end (golden x85 in
         paired runs, and ultra-long reads, where every device run was
-        slower; PERF.md).  Runs that print or dump raw signals load read
-        by read in record order, so ``device`` is an error there."""
+        slower; PERF.md).  Only the wave path reads it: the runs that
+        print or dump raw signals detect on the host
+        (``batches_prefetched``)."""
         eng = self.opt.events_engine or "auto"
         if eng == "auto":
             eng = "host"
         if eng not in ("host", "device"):
             raise ValueError(f"events engine {eng!r}: expected auto, host "
                              "or device")
-        if eng == "device" and not self.supports_waves():
-            raise ValueError("events engine device: --print-raw, "
-                             "--write-dump and --read-dump load read by "
-                             "read with the host detector")
         return eng
 
     def _load_wave_device(self, w, batch, keep_raw: bool):
@@ -1126,7 +1123,14 @@ class Pipeline:
         """batches() behind a prefetch thread: batch N+1 loads (signal
         fetch + event detection, IO/native-bound) while the device
         processes batch N — the reference's 3-stage interleaved pipeline
-        (meth_main.c:610-742) collapsed to load/process overlap."""
+        (meth_main.c:610-742) collapsed to load/process overlap.  The runs
+        that take it (``supports_waves`` is false) load read by read with
+        the host detector, so ``--events-engine device`` gives one warning
+        (as the JAX package does)."""
+        if self._events_engine() == "device":
+            sys.stderr.write("[f5c-tpu] --print-raw/--write-dump/--read-dump "
+                             "load read by read on the host: events-engine "
+                             "device is ignored for this run\n")
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         _END = object()
 
@@ -1257,9 +1261,11 @@ class Pipeline:
         elif r.status & FAILED_QUALITY_CHK:
             self.counters["qc_fail"] += 1
 
-    def report(self, f=sys.stderr):
-        """End-of-run counters + sanity warnings (meth_main.c:744-837).
-        Returns a nonzero exit code when every read failed."""
+    def report(self, f=None):
+        """End-of-run counters + sanity warnings (meth_main.c:744-837) on
+        ``f``, the stderr of the moment by default.  Returns a nonzero
+        exit code when every read failed."""
+        f = sys.stderr if f is None else f
         c = self.counters
         f.write(f"[f5c-tpu] candidate reads: {c['total_reads']}; "
                 f"processed: {c['processed']}; "

@@ -13,6 +13,9 @@ reference).  Everything is made from the caller's
 
 from __future__ import annotations
 
+import os
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -320,3 +323,161 @@ def viterbi_round(rng, model, n_chunks: int, n_ref=(12, 105),
     return dict(rank_pool=np.concatenate(rk_parts).astype(np.int32),
                 ev_pool=np.concatenate(ev_parts).astype(np.float32),
                 spec_i32=spec_i32, spec_f32=spec_f32, chunks=chunks)
+
+
+# --- other pore configurations: R10.4.1-style 9-mer DNA, RNA004 --------
+
+K9 = 9
+
+
+def write_model_file(path: str, kmer_bytes: np.ndarray, means, stdvs,
+                     k: int) -> None:
+    """An f5c/nanopolish text model (``#k`` header, one ``kmer mean
+    stdv`` row a k-mer in rank order), written vectorised."""
+    km = kmer_bytes.view(f"S{k}").ravel().astype(f"U{k}")
+    rows = np.char.add(
+        np.char.add(np.char.add(km, "\t"), np.char.mod("%.2f", means)),
+        np.char.add(np.char.add("\t", np.char.mod("%.2f", stdvs)), "\n"))
+    with open(path, "w") as f:
+        f.write(f"#k\t{k}\n")
+        f.write("".join(rows.tolist()))
+
+
+def _k9_tables(seed: int) -> dict:
+    """Synthetic 9-mer tables: {"nucleotide": (k-mer bytes, means,
+    stdvs), "meth": (...)}: 4^9 random levels, and 5^9 CpG levels whose
+    k-mers without M share the nucleotide levels (the construction of
+    tests/test_pore_configs_cli.py)."""
+    rng = np.random.default_rng(seed)
+    n4 = 4 ** K9
+    means4 = rng.uniform(60.0, 130.0, n4).astype(np.float32)
+    stdv4 = rng.uniform(1.2, 3.0, n4).astype(np.float32)
+    i4 = np.arange(n4, dtype=np.int64)
+    km4 = np.stack([np.frombuffer(b"ACGT", np.uint8)[(i4 >> (2 * p)) & 3]
+                    for p in range(K9 - 1, -1, -1)], axis=1)
+    n5 = 5 ** K9
+    i5 = np.arange(n5, dtype=np.int64)
+    dig = np.stack([(i5 // 5 ** p) % 5 for p in range(K9 - 1, -1, -1)],
+                   axis=1)
+    km5 = np.frombuffer(b"ACGMT", np.uint8)[dig]
+    has_m = (dig == 3).any(axis=1)
+    rank4 = np.zeros(n5, np.int64)
+    for c in range(K9):
+        rank4 = rank4 * 4 + np.where(dig[:, c] == 4, 3, dig[:, c])
+    means5 = means4[rank4]
+    stdv5 = stdv4[rank4]
+    shift_m = rng.uniform(-8, 8, n5).astype(np.float32)
+    means5[has_m] = 90.0 + shift_m[has_m]
+    stdv5[has_m] = 2.0
+    return {"nucleotide": (km4, means4, stdv4), "meth": (km5, means5, stdv5)}
+
+
+def k9_models(seed: int = 5) -> tuple:
+    """The synthetic 9-mer tables as (nucleotide, CpG) PoreModels."""
+    from .models.pore_model import PoreModel
+
+    return tuple(PoreModel(k=K9, alphabet=a, level_mean=m, level_stdv=s)
+                 for a, (_, m, s) in _k9_tables(seed).items())
+
+
+def r10_models(dst: str, seed: int = 5) -> tuple[str, str]:
+    """The synthetic 9-mer tables (``k9_models``) as full-size model files
+    in ``dst``, levels to two decimals as in ONT's and f5c's files.
+    Returns the (nucleotide, CpG) paths."""
+    os.makedirs(dst, exist_ok=True)
+    paths = []
+    for name, (km, means, stdvs) in zip(("nucleotide", "cpg"),
+                                        _k9_tables(seed).values()):
+        paths.append(os.path.join(dst, f"r10.{name}.9mer.model"))
+        write_model_file(paths[-1], km, means, stdvs, K9)
+    return tuple(paths)
+
+
+def _pore_reads(dst, contig, genome, reads, model, rng, spb, noise,
+                channel, attrs, transcribe=False) -> dict:
+    """Write a dataset (datasets.ROLES) of ``reads`` = (qname, read seq,
+    flag, pos, BAM seq) over ``genome``, each read's raw signal drawn from
+    ``model`` at ``spb`` samples a k-mer (3' to 5' with ``transcribe``,
+    the RNA order, its reads FASTA in U), indexed."""
+    from .datasets import _index, dataset
+    from .io.bam import write_bam
+    from .io.fast5 import Signal
+    from .io.slow5 import write_blow5
+
+    digitisation, offset, rng_pa, rate = channel
+    os.makedirs(dst, exist_ok=True)
+    out = dataset(dst)
+    with open(out["genome"], "w") as f:
+        f.write(f">{contig}\n{genome}\n")
+    with open(out["reads"], "w") as f:
+        for q, seq, *_ in reads:
+            f.write(f">{q}\n{seq.replace('T', 'U') if transcribe else seq}"
+                    "\n")
+    write_bam(out["bam"], [(contig, len(genome))], [
+        SimpleNamespace(qname=q, flag=flag, tid=0, pos=pos, mapq=60,
+                        cigar=[(0, len(bam_seq))], seq=bam_seq)
+        for q, _s, flag, pos, bam_seq in reads])
+    signals = []
+    for q, seq, *_ in reads:
+        levels = model.level_mean[model.kmer_ranks(seq)]
+        if transcribe:
+            levels = levels[::-1]
+        pa = np.repeat(levels, rng.integers(spb[0], spb[1],
+                                            levels.shape[0]))
+        pa = (pa + rng.normal(0, noise, pa.shape[0])).astype(np.float32)
+        raw = np.clip(pa * digitisation / rng_pa - offset, -32000, 32000)
+        signals.append(Signal(raw=raw.astype(np.int16),
+                              digitisation=digitisation, offset=offset,
+                              range=rng_pa, sample_rate=rate, read_id=q))
+    write_blow5(out["slow5"], signals, attrs=attrs)
+    _index(out)
+    return out
+
+
+def r10_dataset(dst: str, nuc_model_path: str, seed: int = 7,
+                lengths=(900, 1400, 1100, 700)) -> dict:
+    """A synthetic R10 DNA dataset (the read of tests/test_r10_kmer9.py,
+    more of them): reads of ``lengths`` bases over a random genome, every
+    other one on the reverse strand, squiggles drawn from the 9-mer model
+    at 5-11 samples a k-mer, a BLOW5 whose header names an R10.4.1 kit
+    (``sqk-lsk114``), so that the chemistry is detected from it."""
+    from .datasets import _revcomp
+    from .models import load_model_file
+
+    rng = np.random.default_rng(seed)
+    model = load_model_file(nuc_model_path)
+    span = sum(lengths) + 50 * len(lengths)
+    genome = "".join(rng.choice(list("ACGT"), p=[.3, .2, .2, .3],
+                                size=span))
+    reads, pos = [], 0
+    for i, n in enumerate(lengths):
+        seg = genome[pos:pos + n]
+        rev = i % 2 == 1
+        reads.append((f"r10-read{i}", _revcomp(seg) if rev else seg,
+                      16 if rev else 0, pos, seg))
+        pos += n + 50
+    return _pore_reads(dst, "ctg", genome, reads, model, rng, (5, 12), 1.0,
+                       (8192.0, 0.0, 1500.0, 4000.0),
+                       {"sequencing_kit": "sqk-lsk114"})
+
+
+def rna004_dataset(dst: str, seed: int = 13, lengths=(500, 650)) -> dict:
+    """A synthetic RNA004 dataset (the read of
+    tests/test_pore_configs_cli.py::test_rna004_m6anet_cli, more of
+    them): one transcript per read, its k-mers emitted 3' to 5' from the
+    RNA004 table at 20-39 samples a k-mer, a BLOW5 whose header says
+    ``experiment_type rna`` and ``sequencing_kit sqk-rna004``."""
+    from .models import builtin_model
+
+    rng = np.random.default_rng(seed)
+    model = builtin_model("rna004_nucleotide")
+    seqs = [random_seq(rng, n) for n in lengths]
+    genome = "".join(seqs)
+    reads, pos = [], 0
+    for i, seq in enumerate(seqs):
+        reads.append((f"rna004-read{i}", seq, 0, pos, seq))
+        pos += len(seq)
+    return _pore_reads(dst, "tx1", genome, reads, model, rng, (20, 40), 1.0,
+                       (8192.0, 0.0, 1200.0, 3000.0),
+                       {"experiment_type": "rna",
+                        "sequencing_kit": "sqk-rna004"}, transcribe=True)

@@ -12,6 +12,9 @@ flags of ``ops/_build.py`` into a library of its own under
 - ``golden_shaped``: 11,520 windows in launch order, 49 % of 16 k-mers,
   41 % of 17-32 and 10 % of 33-58 (the classes of chip_smoke.py's scale
   launch);
+- ``golden_shaped_k9``: the same k-mer counts on the synthetic 9-mer
+  CpG table (5^9 levels, 23 MB: ``synthetic.k9_models``), so that the
+  table and k are all that differ from ``golden_shaped``;
 - ``mixed``: 2,000 windows of 1-300 k-mers.
 
 Every variant is first held to the plain version (hmm.py's tolerance),
@@ -94,11 +97,12 @@ def main(argv: list[str]) -> int:
     golden = np.concatenate([
         np.full(int(0.49 * n), 16), rng.integers(17, 33, int(0.41 * n)),
         rng.integers(33, 59, n - int(0.49 * n) - int(0.41 * n))])
-    batches = {"golden_shaped": golden,
-               "mixed": rng.integers(1, 301, 2000)}
+    batches = {"golden_shaped": (golden, cpg),
+               "golden_shaped_k9": (golden, synthetic.k9_models()[1]),
+               "mixed": (rng.integers(1, 301, 2000), cpg)}
     smsp = 4 * torch.cuda.get_device_properties(0).multi_processor_count
-    for name, n_kmers in batches.items():
-        x = synthetic.hmm_meta_windows(rng, n_kmers, cpg)
+    for name, (n_kmers, model) in batches.items():
+        x = synthetic.hmm_meta_windows(rng, n_kmers, model)
         t = {k: torch.as_tensor(v, device="cuda") for k, v in x.items()
              if isinstance(v, np.ndarray)}
         want = hmm_meta.hmm_forward_meta_plain(

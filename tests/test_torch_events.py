@@ -11,6 +11,8 @@ detector only.  Then call-methylation with ``--events-engine device
 --device cpu`` against ``--events-engine host``: the same bytes.
 """
 
+import contextlib
+import io
 import os
 
 import numpy as np
@@ -125,32 +127,26 @@ def test_events_batch_sample_budget(monkeypatch):
     assert all(_same(a, b) for a, b in zip(split, whole))
 
 
-def test_events_engine_resolution():
+def test_events_engine_resolution(capsys):
     """``auto`` is ``host`` on every device (the device engine won no
     configuration measured on the card: PERF.md) and ``device`` is taken
-    when asked for; runs that print or dump raw signals refuse ``device``
-    (the pipeline and the CLI) rather than detect on the host unasked."""
-    from f5c_tpu_torch.cli import main
+    when asked for, silently; runs that print or dump raw signals load
+    read by read with the host detector and warn there, once a run
+    (``test_dump_runs_with_device_engine_warn``), as in the JAX
+    package."""
     from f5c_tpu_torch.pipeline.runner import Options, Pipeline
 
     model = builtin_model("dna_r9_nucleotide")
     for dev in ("cpu", "cuda"):
         for eng, want in (("auto", "host"), ("host", "host"),
                           ("device", "device")):
-            pipe = Pipeline.bare(Options(events_engine=eng), model,
-                                 device=torch.device(dev))
-            assert pipe._events_engine() == want
-    pipe = Pipeline.bare(Options(print_raw=True), model,
-                         device=torch.device("cuda"))
-    assert pipe._events_engine() == "host"
-    pipe.opt.events_engine = "device"
-    with pytest.raises(ValueError, match="--print-raw"):
-        pipe._events_engine()
-    with pytest.raises(SystemExit) as e:
-        main(["call-methylation", "--device", "cpu", "-b", "x.bam", "-g",
-              "g.fa", "-r", "r.fa", "--events-engine", "device",
-              "--print-raw"])
-    assert e.value.code == 2
+            for raw in (False, True):
+                pipe = Pipeline.bare(
+                    Options(events_engine=eng, print_raw=raw), model,
+                    device=torch.device(dev))
+                assert pipe._events_engine() == want
+                assert pipe.supports_waves() is not raw
+    assert capsys.readouterr().err == ""
 
 
 def _meth(golden_dir, tag, *extra):
@@ -188,3 +184,46 @@ def test_call_methylation_device_events_same_bytes(tmp_path, monkeypatch):
     assert sum(calls) == 6
     assert host.count(b"\n") > 1
     assert dev == host == auto
+
+
+@pytest.fixture(scope="module")
+def host_dump_run(tmp_path_factory):
+    """The golden set, and one call-methylation run on it with
+    ``--events-engine host --print-raw --write-dump``: its output, the raw
+    signals it printed and the dump it wrote, the references of the
+    device-engine runs below."""
+    golden = str(tmp_path_factory.mktemp("dump_runs"))
+    datasets.copy_dataset(
+        datasets.dataset(GOLDEN, slow5=datasets.GOLDEN_SIGNALS_ZLIB), golden)
+    dump = os.path.join(golden, "host.dump")
+    raw = io.StringIO()
+    with contextlib.redirect_stdout(raw):
+        out = _meth(golden, "host", "--events-engine", "host", "--print-raw",
+                    "--write-dump", dump)
+    with open(dump, "rb") as f:
+        return golden, out, raw.getvalue(), f.read(), dump
+
+
+@pytest.mark.parametrize("flag", ["--print-raw", "--write-dump",
+                                  "--read-dump"])
+def test_dump_runs_with_device_engine_warn(host_dump_run, capfd, flag):
+    """``--print-raw``, ``--write-dump`` and ``--read-dump`` with
+    ``--events-engine device`` exit 0, print the warning once and write
+    the bytes of ``--events-engine host``: the same output, raw signals
+    printed and dump written, and the same output read from the host
+    run's dump."""
+    golden, host, host_raw, host_dump, dump = host_dump_run
+    extra = {"--print-raw": ["--print-raw"],
+             "--write-dump": ["--write-dump",
+                              os.path.join(golden, f"device{id(capfd)}.dump")],
+             "--read-dump": ["--read-dump", dump]}[flag]
+    capfd.readouterr()
+    dev = _meth(golden, "device", "--events-engine", "device", *extra)
+    out, err = capfd.readouterr()
+    assert dev == host and host.count(b"\n") > 1
+    assert err.count("events-engine device is ignored") == 1
+    if flag == "--print-raw":
+        assert out == host_raw and out.count("\tLN:") == 6
+    if flag == "--write-dump":
+        with open(extra[1], "rb") as f:
+            assert f.read() == host_dump

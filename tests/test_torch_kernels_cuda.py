@@ -123,6 +123,42 @@ def test_hmm_kernel_marks_a_wrong_class_split(cuda):
                                    atol=hmm.ATOL)
 
 
+def test_kernels_match_plain_with_9mer_tables(cuda):
+    """K1 and K4 with a 4^9 nucleotide table and K2 with a 5^9 CpG table
+    (the synthetic R10 tables of synthetic.k9_models), and K2's in-kernel
+    9-mer ranks, against their plain versions."""
+    nuc, cpg = synthetic.k9_models()
+    rng = np.random.default_rng(19)
+    seqs, events = synthetic.abea_reads(rng, [40, 300, 900, 2500], nuc,
+                                        unrelated=(1,))
+    x = _on(synthetic.abea_inputs(seqs, events, nuc), cuda)
+    fill_args = [x[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool",
+                                "rk_off", "rk_len", "level_mean",
+                                "level_stdv", "level_log_stdv", "params",
+                                "band_off")]
+    got = abea_cuda.abea_fill(*fill_args, x["n_bands"])
+    want = abea.abea_fill_plain(*fill_args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    walk_args = (want[0], want[1], x["band_off"], want[2], x["rk_len"],
+                 x["byte_off"])
+    got = abea_cuda.abea_walk(*walk_args, x["n_bytes"])
+    want_w = abea.abea_walk_plain(*walk_args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want_w):
+        assert torch.equal(g, w)
+    m = synthetic.hmm_meta_windows(rng, [1, 9, 17, 40, 128, 300], cpg)
+    assert m["k"] == 9
+    _hmm_meta_case(m, cuda)
+    t = _on(m, cuda)
+    args = (t["meta"], t["packed_ref"], t["read_tab"])
+    got = hmm_cuda.hmm_window_ranks(*args, 9, m["max_km"])
+    assert torch.equal(got, hmm_meta.build_inputs(*args, k=9,
+                                                  kw=m["max_km"])[0])
+    assert int(got.max()) >= 4 ** 9
+
+
 def test_hmm_rank_probe_matches_build_inputs(cuda):
     """The kernel's in-prologue k-mer ranks, bit for bit build_inputs', on
     the cases of tests/test_torch_ranks.py and windows at both ends of
