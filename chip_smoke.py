@@ -21,7 +21,11 @@ Phases (each prints one line; any failure raises and exits nonzero):
    walk -- among 40 short ones, held to the plain versions at two of its
    windows); the event detector (K9) bit for bit its plain version and
    native.detect_events on the golden signals and on synthetic DNA (tiny
-   values whose prefix sums round, the densest pattern) and RNA signals;
+   values whose prefix sums round, the densest pattern) and RNA signals,
+   and its chunk-parallel peak scan alone (the probe) on the golden
+   signals' tracks and the adversarial synthetic.peak_tracks, at the
+   kernel's own chunk length and at 32 and 1,000 samples, bit for bit the
+   sequential scan, in as many rounds as its plain model takes;
    the chunk Viterbi (K8) bit for bit its plain version and, chunk by
    chunk, the host DP (native.viterbi_chunk_spec) on a synthetic round,
    with its movement tables in shared memory and all in global memory;
@@ -59,7 +63,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
    windows of the windowed run (the last one, from band ~786k, and a full
    one of 65,536 bands x 4 reads), and the HMM launches of that run held
    to theirs; the event detector held to native.detect_events and its
-   plain version on the 4 reads and timed; the unchunked kernels timed;
+   plain version on the 4 reads and timed (its peak kernel also alone);
+   windowed call-methylation once more with device events: its peak
+   device memory (K9's scratch) and the bytes of the host-events run;
+   the unchunked kernels timed;
 7. pores: the synthetic R10 set (4 reads, full-size 9-mer tables:
    f5c_tpu_torch.synthetic.r10_models / r10_dataset) through
    call-methylation and eventalign --summary with the native and the
@@ -81,8 +88,9 @@ Phases (each prints one line; any failure raises and exits nonzero):
 
 It prints a JSON line of the kernels (launches on the main path, max
 abs error against the plain version, ms (for K8 and K9 the kernels
-alone, with the whole wrapper call as wrapper_ms), plain ms, and the
-roofline bound
+alone, with the whole wrapper call as wrapper_ms; for K9 also its peak
+kernel alone, peaks_ms and its bound, and the rounds of its peak scan on
+the main path), plain ms, and the roofline bound
 of the timed launch: bytes each input read once and each output written
 once over 3.35 TB/s, f32 operations over 67 TFLOP/s or f64 operations
 over 34 TFLOP/s, whichever is largest), the card's name and power limit,
@@ -94,10 +102,11 @@ package or jax was imported.
 ``--profile`` runs only phases 1-2, then golden x85 (call-methylation
 with each events engine in 10 warm pairs, the order alternating, then
 each once under torch.profiler; eventalign with the native and the
-device engine) and phase 6's four configurations (and windowed
-call-methylation with host events), the others each warm three times and
-once under torch.profiler: walls, the card's busy time and share of the
-wall, device ms and launches per kernel.
+device engine) and phase 6's four configurations, each with both events
+engines, the others each warm three times and once under torch.profiler:
+walls, the card's busy time and share of the wall, device ms and
+launches per kernel (K9's always by name, and with device events the
+times its kernels' names occur in the exported trace).
 """
 
 from __future__ import annotations
@@ -847,7 +856,11 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
             else:
                 kernel_ms.update(time_unchunked_kernels(torch, spy.calls))
             del spy
-            for cmd in ("meth", "eventalign"):
+            entries = [("meth", ()), ("eventalign", ())]
+            if mode == "windowed":
+                # with device events too: K9's scratch in the peak
+                entries.append(("meth_device_events", DEVICE_EVENTS))
+            for cmd, extra in entries:
                 out = os.path.join(tmp, f"ultra_{mode}_{cmd}.tsv")
                 summary = out + ".summary" if cmd == "eventalign" else None
                 rec = WalkRecorder(runner)
@@ -856,7 +869,8 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
                 try:
-                    wall, processed, stages = run_cli(data, out, summary)
+                    wall, processed, stages = run_cli(data, out, summary,
+                                                      extra=extra)
                 finally:
                     rec.close()
                 counts = read_counts()
@@ -873,7 +887,9 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                         or (counts["abea_fill_window"] > 0) != windowed
                         or (counts["abea_walk_window"] > 0) != windowed
                         or (counts["abea_fill"] > 0) == windowed
-                        or (cmd == "meth" and counts["hmm_forward"] == 0)):
+                        or (cmd != "eventalign"
+                            and counts["hmm_forward"] == 0)
+                        or (counts["events"] > 0) != bool(extra)):
                     raise AssertionError(f"ultra {mode} {cmd} run failed")
         finally:
             runner.Pipeline.TRACE_BYTES_BUDGET = budget
@@ -885,6 +901,13 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
     say("ultra_kernels", card=card.replace(" ", "_"),
         **{k: (f"{v:.3f}" if isinstance(v, float) else v)
            for k, v in kernel_ms.items()})
+    dev_ev = runs["windowed", "meth_device_events"]
+    same = filecmp.cmp(dev_ev["out"], runs["windowed", "meth"]["out"],
+                       shallow=False)
+    say("ultra_compare", entry="meth", file="device_events_vs_host",
+        walks_identical=dev_ev["walks"] == walks, byte_identical=same)
+    if not same or dev_ev["walks"] != walks:
+        raise AssertionError("ultra meth: device events differ from host")
     with open(runs["windowed", "meth"]["out"]) as f:
         names = {ln.split("\t")[3] for ln in f.read().split("\n")[1:] if ln}
     if names != set(walks):
@@ -910,7 +933,7 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
 def hold_ultra_events(torch, calls) -> dict:
     """The event detector's launch of the ultra run (the 4 reads' ~1.28 M
     events) held to its plain version and to native.detect_events bit for
-    bit, and timed.  Returns fields to print."""
+    bit, and timed, its peak kernel also alone.  Returns fields to print."""
     from f5c_tpu_torch.models import builtin_model
     from f5c_tpu_torch.ops import _build, events_cuda, events_device
 
@@ -926,14 +949,82 @@ def hold_ultra_events(torch, calls) -> dict:
     ms = time_ms(torch, lambda: events_cuda.detect_events(*args, **kw), 3)
     kern_ms = kernel_ms(torch, _build,
                         lambda: events_cuda.detect_events(*args, **kw), 3)
+    peak_scan = time_peak_scan(torch, _build, args, 3)
     off = args[1].cpu().numpy()
     return dict(events_ms=kern_ms, events_wrapper_ms=ms,
+                **{f"events_{k}": v for k, v in peak_scan.items()},
                 events_plain_ms=plain_ms,
                 events_bound_ms=bound_of("events", args, kw, got)[0],
                 events_samples=int(off[-1]),
                 events_longest_read=int((off[1:] - off[:-1]).max()),
                 events_events=int(got[1].shape[0]),
                 events_vs_native_reads=held["events"])
+
+
+def hold_peak_probe(torch, dev) -> dict:
+    """K9's peak scan alone (events_cuda.peaks_from_tracks) on the golden
+    signals' tracks and on synthetic.peak_tracks, at the kernel's own
+    chunk length (0) and at 32 and 1,000 samples: each read's peaks
+    events_device.peak_scan's, in order, and its rounds those of the
+    plain model at the same chunk length.  Returns fields to print."""
+    import numpy as np
+
+    from f5c_tpu_torch import datasets, synthetic
+    from f5c_tpu_torch.io.slow5 import Slow5File
+    from f5c_tpu_torch.ops import events_cuda, events_device
+
+    f = Slow5File(datasets.GOLDEN_SIGNALS_ZLIB)
+    golden = [f.get(r).to_pa() for r in f.read_ids()]
+    rounds = {}
+    for x in synthetic.peak_probe_batches(np.random.default_rng(2034),
+                                          golden):
+        args, rna, so = (x["t1"], x["t2"], x["sig_off"]), x["rna"], \
+            x["sig_off"].tolist()
+        for chunk in (0, 32, 1000):
+            got, r = events_cuda.peaks_from_tracks(
+                *(a.to(dev) for a in args), rna, chunk)
+            want, r_model = events_cuda.peaks_from_tracks(*args, rna, chunk)
+            for i, name in enumerate(x["names"]):
+                lo, hi = so[i], so[i + 1]
+                seq = events_device.peak_scan(x["t1"][lo:hi].tolist(),
+                                              x["t2"][lo:hi].tolist(),
+                                              hi - lo, rna)
+                if got[i] != seq or want[i] != seq or r[i] != r_model[i]:
+                    raise AssertionError(f"peak probe: {name} at chunk "
+                                         f"{chunk} differs")
+                rounds[f"{name}@{chunk}"] = int(r[i])
+    return dict(probe_reads=len(rounds),
+                probe_rounds_max=max(rounds.values()),
+                probe_rounds=json.dumps(rounds, separators=(",", ":")))
+
+
+def time_peak_scan(torch, _build, args, reps: int) -> dict:
+    """K9's peak kernel alone at a recorded launch of the event detector:
+    the launch's tracks (its plain version's, moved to the card) through
+    the probe at the kernel's own chunk length, its peaks held to the
+    launch's event starts, timed (the kernel's CUDA-event spans, mean of
+    ``reps``), with its bound: the two tracks read once (8 bytes a
+    sample), the bounds written once (4 bytes a peak), the f32
+    comparisons (~4 a sample) over the card's rate."""
+    from f5c_tpu_torch.ops import events_cuda, events_device
+
+    pa, off, rna = args[:3]
+    t1, t2 = events_device.tracks_plain(pa, off, rna)
+    targs = (t1.to(pa.device), t2.to(pa.device), off, rna)
+    peaks, rounds = events_cuda.peaks_from_tracks(*targs)
+    ev_off, start = (t.cpu().numpy() for t in
+                     events_cuda.detect_events(*args)[:2])
+    for i, p in enumerate(peaks):
+        if p != start[ev_off[i] + 1:ev_off[i + 1]].tolist():
+            raise AssertionError(f"peak probe: read {i} differs from the "
+                                 "launch's event starts")
+    ms = kernel_ms(torch, _build,
+                   lambda: events_cuda.peaks_from_tracks(*targs), reps)
+    n_peaks = sum(len(p) for p in peaks)
+    bound = roofline(8 * pa.numel() + 4 * n_peaks, 4 * pa.numel())
+    return dict(peaks_ms=ms, peaks_bound_ms=bound[0],
+                peaks_rounds_max=int(rounds.max()),
+                peaks_rounds_mean=float(rounds.mean()))
 
 
 def same_bytes(*pairs) -> bool:
@@ -1317,7 +1408,7 @@ def hmm_shape(args, kw) -> dict:
 
 def device_busy(torch, prof, top: int = 6):
     """(busy ms: the union of the card's spans, {kernel: [ms, launches]}
-    for the ``top`` kernels by time and the rest as "other") of a
+    for the ``top`` kernels by time and K9's, the rest as "other") of a
     torch.profiler run."""
     spans, per = [], {}
     for ev in prof.events():
@@ -1336,10 +1427,14 @@ def device_busy(torch, prof, top: int = 6):
             busy += t1 - max(t0, end)
             end = t1
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
-    out = {k: [round(ms, 3), n] for k, (ms, n) in ranked[:top]}
-    if ranked[top:]:
-        out["other"] = [round(sum(v[0] for _, v in ranked[top:]), 3),
-                        sum(v[1] for _, v in ranked[top:])]
+    # K9's kernels are always listed by name
+    shown = ranked[:top] + [kv for kv in ranked[top:]
+                            if kv[0].startswith("events_")]
+    rest = [kv for kv in ranked[top:] if kv not in shown]
+    out = {k: [round(ms, 3), n] for k, (ms, n) in shown}
+    if rest:
+        out["other"] = [round(sum(v[0] for _, v in rest), 3),
+                        sum(v[1] for _, v in rest)]
     return busy / 1e3, out
 
 
@@ -1363,6 +1458,17 @@ def profile_runs(torch, card, runner, datasets, reps: int = 3) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             wall = run()[0]
         busy, per = device_busy(torch, prof)
+        if events == "device":
+            # K9's kernels as the exported trace names them, beside the
+            # profiler's events that device_busy reads
+            path = out + ".trace.json"
+            prof.export_chrome_trace(path)
+            text = read_text(path)
+            os.remove(path)
+            fields["k9_trace_names"] = json.dumps(
+                {k: text.count(f"events_{k}_kernel")
+                 for k in ("sums", "peaks", "assemble")},
+                separators=(",", ":"))
         say("profile", **fields, events=events, ea_engine=ea_engine,
             warm_walls_s=",".join(f"{w:.3f}" for w, _, _ in res),
             stages=" | ".join(st.replace(" ", ",") for _, _, st in res),
@@ -1411,9 +1517,7 @@ def profile_runs(torch, card, runner, datasets, reps: int = 3) -> None:
                 for cmd in ("meth", "eventalign"):
                     out = os.path.join(tmp, f"{mode}_{cmd}.tsv")
                     summary = out + ".summary" if cmd == "eventalign" else None
-                    engines = (("host", "device") if mode == "windowed"
-                               and cmd == "meth" else ("auto",))
-                    for events in engines:
+                    for events in ("host", "device"):
                         measure(data, out, summary, events=events, mode=mode,
                                 entry=cmd)
             finally:
@@ -1507,6 +1611,7 @@ def main(argv: list[str]) -> int:
         err_synth = compare_launches(synthetic_calls(torch, dev), torch)
         probed = rank_probe_cases(torch, dev)
         k8k9 = synthetic_k8k9(torch, dev)
+        k8k9.update(hold_peak_probe(torch, dev))
         torch.cuda.synchronize()
         say("kernel_vs_plain", golden=err_golden, synthetic=err_synth,
             rank_probe_windows=probed, golden_events_vs_native=held_golden,
@@ -1670,6 +1775,7 @@ def main(argv: list[str]) -> int:
         for rep, engine in enumerate(engines):
             out = os.path.join(tmp, f"scale{rep}.tsv")
             reset_counts()
+            events_cuda.rounds.update(max=0, sum=0, reads=0)
             spy = Spy(kernel_mods) if rep == len(engines) - 1 else None
             try:
                 wall, processed, stages = run_cli(
@@ -1680,6 +1786,8 @@ def main(argv: list[str]) -> int:
             counts = {k: v for k, v in read_counts().items()
                       if k in ("abea_fill", "abea_walk", "hmm_forward",
                                "events")}
+            # the peak scan's rounds on the main path (the last run)
+            scan_rounds = dict(events_cuda.rounds)
             bad = deviant_rows(out, truth, copies=COPIES)
             walls[engine].append(wall)
             say("scale", run=rep + 1, events_engine=engine, reads=processed,
@@ -1773,6 +1881,12 @@ def main(argv: list[str]) -> int:
             kern_ms = kernel_ms(torch, _build, timed[name][0], 20)
             wrapper_ms[name] = timings[name][0]
             timings[name] = (kern_ms, *timings[name][1:])
+        # K9's peak kernel alone at the timed launch, and its rounds on the
+        # main path
+        peak_scan = time_peak_scan(torch, _build, ev_a, 20)
+        peak_scan.update(
+            rounds_max=scan_rounds["max"],
+            rounds_mean=scan_rounds["sum"] / max(scan_rounds["reads"], 1))
         # the unfused input assembly the HMM kernel replaces (K6: the
         # parent's torch ops before its forward kernel), at this launch
         k6_ms = time_ms(torch, lambda: hmm_meta.build_inputs(
@@ -1798,6 +1912,7 @@ def main(argv: list[str]) -> int:
             walls_ea_native=[round(w, 3) for w in ea_scale["native"]],
             walls_ea_device=[round(w, 3) for w in ea_scale["device"]],
             events_wrapper_ms=round(wrapper_ms["events"], 4),
+            events_peak_scan=json.dumps(peak_scan, separators=(",", ":")),
             viterbi_wrapper_ms=round(wrapper_ms["viterbi"], 4))
         say("timing", shapes=shapes, card=card.replace(" ", "_"),
             best_reads_per_s=f"{n_reads / min(walls['device']):.2f}",
@@ -1845,6 +1960,8 @@ def main(argv: list[str]) -> int:
             if name in wrapper_ms:
                 # ms: the kernels alone; wrapper_ms: the whole call
                 kernels[-1]["wrapper_ms"] = wrapper_ms[name]
+            if name == "events":
+                kernels[-1].update(peak_scan)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "f5c_tpu"))

@@ -28,6 +28,9 @@ at most its samples + 1, the bound the host detector sizes its buffers to.
 
 from __future__ import annotations
 
+import functools
+import struct
+
 import numpy as np
 import torch
 
@@ -94,24 +97,53 @@ def tstat_track(s: torch.Tensor, q: torch.Tensor, n: int, w: int):
     return t
 
 
-def peak_scan(t1: list, t2: list, n: int, rna: bool) -> list:
-    """The two coupled peak detectors over the t-stat tracks (python
-    floats holding f32 values), the reference's per-sample loop
-    (events.c:380-452): peak positions in emission order.  ``v - pv >
-    ph`` is an f32 comparison: the f64 difference of two f32 values
-    rounds to f32 as the direct f32 difference would, and it exceeds ph
-    after that rounding exactly when it reaches ph's f32 successor or
-    rounds above ph."""
+def tracks_plain(pa_pool, sig_off, rna: bool):
+    """The two t-stat tracks of a ragged batch (f32 [S] each, on the
+    CPU), in the layout of csrc/events.cu's T1 and T2: what
+    ``events_cuda.peaks_from_tracks`` takes."""
+    pa = pa_pool.cpu()
+    off = sig_off.cpu().tolist()
+    w1, w2 = detector_params(rna)[:2]
+    t1 = torch.zeros(pa.shape[0], dtype=torch.float32)
+    t2 = torch.zeros(pa.shape[0], dtype=torch.float32)
+    for a, b in zip(off[:-1], off[1:]):
+        s, q = prefix_sums(pa[a:b])
+        t1[a:b] = tstat_track(s, q, b - a, w1)
+        t2[a:b] = tstat_track(s, q, b - a, w2)
+    return t1, t2
+
+
+# the detectors' state: (pp0, pv0, val0, pp1, pv1, val1, masked1)
+PEAK_INIT = (-1, FLT_MAX, False, -1, FLT_MAX, False, 0)
+# the chunked peak scan of csrc/events.cu: at least MIN_CHUNK samples a
+# chunk, at most MAX_THREADS chunks (threads) a read
+MIN_CHUNK = 32
+MAX_THREADS = 1024
+
+
+@functools.lru_cache(maxsize=2)
+def _peak_params(rna: bool) -> tuple:
+    """(w1, th1, th2, ph, ph's f32 successor, w1 // 2, w2 // 2)."""
     w1, w2, th1, th2, ph = detector_params(rna)
     nxt = float(np.nextafter(np.float32(ph), np.float32(np.inf)))
+    return w1, th1, th2, ph, nxt, w1 // 2, w2 // 2
+
+
+def peak_run(t1: list, t2: list, n: int, rna: bool, state: tuple, lo: int,
+             hi: int, out: list) -> tuple:
+    """The two coupled peak detectors over samples [lo, hi) of the t-stat
+    tracks (python floats holding f32 values) from ``state``, the
+    reference's per-sample loop (events.c:380-452): appends the peaks
+    emitted, in emission order, to ``out`` and returns the end state.
+    ``v - pv > ph`` is an f32 comparison: the f64 difference of two f32
+    values rounds to f32 as the direct f32 difference would, and it
+    exceeds ph after that rounding exactly when it reaches ph's f32
+    successor or rounds above ph.  A mask that ends before ``hi`` masks
+    no later sample, so the end state holds it as 0, the initial mask."""
+    w1, th1, th2, ph, nxt, h1, h2 = _peak_params(rna)
     f32 = np.float32
-    h1, h2 = w1 // 2, w2 // 2
-    peaks = []
-    pp0 = pp1 = -1
-    pv0 = pv1 = FLT_MAX
-    val0 = val1 = False
-    masked1 = 0
-    for i in range(1, n):
+    pp0, pv0, val0, pp1, pv1, val1, masked1 = state
+    for i in range(lo, hi):
         v = t1[i]
         if pp0 == -1:
             if v < pv0:
@@ -135,7 +167,8 @@ def peak_scan(t1: list, t2: list, n: int, rna: bool) -> list:
             if d > ph and (d >= nxt or float(f32(d)) > ph) and pv0 > th1:
                 val0 = True
             if val0 and i - pp0 > h1:
-                peaks.append(pp0)
+                if 0 < pp0 < n:
+                    out.append(pp0)
                 pp0 = -1
                 pv0 = v
                 val0 = False
@@ -158,11 +191,88 @@ def peak_scan(t1: list, t2: list, n: int, rna: bool) -> list:
             if d > ph and (d >= nxt or float(f32(d)) > ph) and pv1 > th2:
                 val1 = True
             if val1 and i - pp1 > h2:
-                peaks.append(pp1)
+                if 0 < pp1 < n:
+                    out.append(pp1)
                 pp1 = -1
                 pv1 = v
                 val1 = False
+    return (pp0, pv0, val0, pp1, pv1, val1, masked1 if masked1 >= hi else 0)
+
+
+def peak_scan(t1: list, t2: list, n: int, rna: bool) -> list:
+    """The peak positions of a read in emission order: one ``peak_run``
+    over samples [1, n) from the initial state."""
+    peaks = []
+    peak_run(t1, t2, n, rna, PEAK_INIT, 1, n, peaks)
     return peaks
+
+
+def _bits(state: tuple) -> tuple:
+    """A state as the kernel compares it: every field, pv as f32 bits."""
+    return state[:1] + (struct.pack("<f", state[1]),) + state[2:4] + (
+        struct.pack("<f", state[4]),) + state[5:]
+
+
+def peak_threads(max_len: int) -> int:
+    """csrc/events.cu's threads a block for a launch whose longest read
+    has ``max_len`` samples: the largest power of two that leaves chunks
+    of at least MIN_CHUNK samples, within [32, MAX_THREADS]."""
+    c = max_len // MIN_CHUNK
+    return min(MAX_THREADS, max(32, 1 << (c.bit_length() - 1) if c else 0))
+
+
+def peak_chunk(n: int, threads: int) -> int:
+    """The kernel's chunk length for a read of ``n`` samples in a block
+    of ``threads``: samples [1, n) in at most ``threads`` chunks of at
+    least MIN_CHUNK samples (one chunk when fewer)."""
+    m = n - 1
+    if m <= 0:
+        return 1
+    return -(-m // min(threads, max(1, m // MIN_CHUNK)))
+
+
+def peak_scan_chunked(t1: list, t2: list, n: int, rna: bool, chunk: int):
+    """A plain model of csrc/events.cu's chunk-parallel peak scan: returns
+    (the peaks, in order, the rounds).  Chunk c holds samples [1 + c *
+    chunk, 1 + (c + 1) * chunk) of [1, n).  Round 1 runs every chunk from
+    the initial state; each later round re-runs, from its predecessor's
+    end state of the round before, every chunk whose start state changed
+    (the kernel checks them all; only a chunk whose predecessor re-ran can
+    change), until none changes.  After round r chunks 0..r-1 are exact,
+    so the fixed point comes within one round a chunk, on any input.
+    From the fixed point's start states each chunk's emissions are
+    counted (its last run's), offset by an exclusive scan of the counts
+    and written by one more run of the chunk."""
+    spans = [(lo, min(lo + chunk, n)) for lo in range(1, n, chunk)]
+    starts = [PEAK_INIT] * len(spans)
+    ends, counts = [None] * len(spans), [0] * len(spans)
+
+    def run(c, out):
+        ends[c] = peak_run(t1, t2, n, rna, starts[c], *spans[c], out)
+        counts[c] = len(out)
+
+    for c in range(len(spans)):
+        run(c, [])
+    rounds, ran = 1, range(len(spans))
+    while True:
+        new = {c + 1: ends[c] for c in ran if c + 1 < len(spans)
+               and _bits(ends[c]) != _bits(starts[c + 1])}
+        if not new:
+            break
+        rounds += 1
+        for c, st in new.items():
+            starts[c] = st
+        for c in new:
+            run(c, [])
+        ran = list(new)
+    peaks = []
+    for c in range(len(spans)):
+        out = []
+        peak_run(t1, t2, n, rna, starts[c], *spans[c], out)
+        if len(out) != counts[c]:
+            raise AssertionError(f"chunk {c}: count and write disagree")
+        peaks += out
+    return peaks, rounds
 
 
 def events_from_bounds(s, q, bounds: torch.Tensor):
@@ -194,8 +304,8 @@ def detect_events_plain(pa_pool, sig_off, rna: bool):
         s, q = prefix_sums(x)
         t1 = tstat_track(s, q, n, w1).tolist()
         t2 = tstat_track(s, q, n, w2).tolist()
-        peaks = [p for p in peak_scan(t1, t2, n, rna) if 0 < p < n]
-        bounds = torch.tensor([0] + peaks + [n], dtype=torch.int64)
+        bounds = torch.tensor([0] + peak_scan(t1, t2, n, rna) + [n],
+                              dtype=torch.int64)
         parts.append(events_from_bounds(s, q, bounds))
         ev_off.append(ev_off[-1] + bounds.shape[0] - 1)
     if parts:

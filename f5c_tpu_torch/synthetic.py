@@ -267,6 +267,72 @@ def event_signals(rng, model, rna_model=None) -> dict:
     return out
 
 
+def peak_tracks(rng) -> list[dict]:
+    """Adversarial t-stat tracks for the chunk-parallel peak scan, each
+    {"name", "t1", "t2" (f32), "rna"}: all zeros; a slow ramp that never
+    emits; sawtooths whose peaks fall on multiples of 32 and on the first
+    sample of 32-sample chunks; uniform noise, which emits densely; the
+    worst case, a rise of t1 above threshold 1 followed by a long stretch
+    within the peak height below its maximum (the short detector tracks
+    without emitting and resets the long one at every sample, so a chunk
+    run from any other state never falls back into step), for DNA and for
+    RNA; and reads shorter than twice the long window."""
+    f32 = np.float32
+    i = np.arange(4000)
+    cases = [
+        ("zeros", np.zeros(3000), np.zeros(3000), False),
+        ("ramp", np.linspace(0.0, 0.15, 1500), np.linspace(0.0, 0.15, 1500),
+         False),
+        ("saw32", 10.0 - 0.3 * (i % 32), 12.0 - 0.35 * ((i + 16) % 32),
+         False),
+        ("saw32_first", 10.0 - 0.3 * ((i - 1) % 32),
+         12.0 - 0.35 * ((i + 15) % 32), False),
+        ("noise", rng.uniform(0.0, 20.0, 6000), rng.uniform(0.0, 20.0, 6000),
+         False),
+    ]
+    for name, top, drop, rna in (("plateau", 5.0, 0.15, False),
+                                 ("plateau_rna", 8.0, 0.9, True)):
+        t1 = top - rng.uniform(0.0, drop, 1500)
+        t1[:2] = 0.0
+        t1[2] = top
+        cases.append((name, t1, rng.uniform(0.0, 20.0, 1500), rna))
+    for n in (0, 1, 2, 5, 11):
+        cases.append((f"short{n}", rng.uniform(0.0, 20.0, n),
+                      rng.uniform(0.0, 20.0, n), False))
+    return [dict(name=name, t1=t1.astype(f32), t2=t2.astype(f32), rna=rna)
+            for name, t1, t2, rna in cases]
+
+
+def peak_probe_batches(rng, golden=()) -> list[dict]:
+    """The peak-scan probe's launches (``events_cuda.peaks_from_tracks``):
+    the plain t-stat tracks of the DNA pA signals in ``golden`` (named
+    golden0, ...) and ``peak_tracks(rng)``, one ragged batch a chemistry:
+    [{"rna", "t1", "t2" (f32 tensors [S]), "sig_off" (i64 [B+1]),
+    "names"}]."""
+    from .ops.events_device import tracks_plain
+
+    parts = {False: [], True: []}
+    if golden:
+        off = np.zeros(len(golden) + 1, np.int64)
+        np.cumsum([p.shape[0] for p in golden], out=off[1:])
+        t1, t2 = tracks_plain(torch.from_numpy(np.concatenate(golden)),
+                              torch.from_numpy(off), False)
+        parts[False] += [(f"golden{i}", t1[a:b].numpy(), t2[a:b].numpy())
+                         for i, (a, b) in enumerate(zip(off[:-1], off[1:]))]
+    for c in peak_tracks(rng):
+        parts[c["rna"]].append((c["name"], c["t1"], c["t2"]))
+    out = []
+    for rna, items in parts.items():
+        off = np.zeros(len(items) + 1, np.int64)
+        np.cumsum([t1.shape[0] for _, t1, _ in items], out=off[1:])
+        out.append(dict(
+            rna=rna, names=[name for name, _, _ in items],
+            t1=torch.from_numpy(np.concatenate([t for _, t, _ in items])),
+            t2=torch.from_numpy(np.concatenate([t for _, _, t in items])),
+            sig_off=torch.from_numpy(off)))
+    return out
+
+
 def viterbi_round(rng, model, n_chunks: int, n_ref=(12, 105),
                   events_per_kmer=(0.5, 2.0)) -> dict:
     """One lockstep round of eventalign chunks (layout: ops/hmm.py): each

@@ -9,7 +9,9 @@ computes (the rank probe) equal build_inputs' bit for bit.  Without a
 CUDA device every test here skips; run them on the card with ``python -m
 pytest tests/test_torch_kernels_cuda.py``; the windowed ABEA kernels of
 csrc/abea_ultra.cu are held to the same bits, and the event detector and
-the chunk Viterbi to their plain versions and the host code bit for bit.
+the chunk Viterbi to their plain versions and the host code bit for bit,
+and the event detector's peak scan alone (the probe) to the sequential
+scan and its plain model's rounds.
 """
 
 import numpy as np
@@ -260,6 +262,36 @@ def test_events_kernels_match_plain_and_native(cuda):
             assert np.array_equal(got[1][a:b].cpu().numpy(), et.start)
             for g, w in zip(got[2:], (et.length, et.mean, et.stdv)):
                 assert g[a:b].cpu().numpy().tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("chunk", [0, 32, 1000])
+def test_events_peak_probe_matches_model(cuda, chunk):
+    """The peak scan alone (events_cuda.peaks_from_tracks) on the golden
+    signals' tracks and the adversarial synthetic.peak_tracks, at the
+    kernel's own chunk length (0) and pinned ones: events_device.peak_scan's
+    peaks in order, and the rounds of the plain model peak_scan_chunked
+    at the same chunk lengths."""
+    from f5c_tpu_torch import datasets
+    from f5c_tpu_torch.io.slow5 import Slow5File
+    from f5c_tpu_torch.ops import events_cuda, events_device
+
+    f = Slow5File(datasets.GOLDEN_SIGNALS_ZLIB)
+    golden = [f.get(r).to_pa() for r in f.read_ids()]
+    for x in synthetic.peak_probe_batches(np.random.default_rng(2034),
+                                          golden):
+        args = (x["t1"], x["t2"], x["sig_off"])
+        got, rounds = events_cuda.peaks_from_tracks(
+            *(a.to(cuda) for a in args), x["rna"], chunk)
+        want, want_rounds = events_cuda.peaks_from_tracks(*args, x["rna"],
+                                                          chunk)
+        assert got == want
+        assert np.array_equal(rounds, want_rounds)
+        so = x["sig_off"].tolist()
+        for i, p in enumerate(got):
+            lo, hi = so[i], so[i + 1]
+            assert p == events_device.peak_scan(
+                x["t1"][lo:hi].tolist(), x["t2"][lo:hi].tolist(), hi - lo,
+                x["rna"])
 
 
 @pytest.mark.parametrize("table_cap", [None, 1])
