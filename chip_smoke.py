@@ -28,7 +28,11 @@ Phases (each prints one line; any failure raises and exits nonzero):
    sequential scan, in as many rounds as its plain model takes;
    the chunk Viterbi (K8) bit for bit its plain version and, chunk by
    chunk, the host DP (native.viterbi_chunk_spec) on a synthetic round,
-   with its movement tables in shared memory and all in global memory;
+   on two rounds of its partition's edge chunks (1 to 400 k-mers, 1 to
+   4,000 events: the register and the tiled kernel) and on a round whose
+   events, gm or gs leave the range of the register kernel's fast
+   division, with its movement tables in shared memory and all in global
+   memory;
 4. golden gates: ``f5c_tpu_torch.cli.main([...])`` on tests/data/golden,
    against the vendored truth under f5c's tolerance |x - t| <= 0.1|t| +
    0.02: call-methylation (6 reads, 0 deviant rows against meth.exp, every
@@ -77,7 +81,7 @@ Phases (each prints one line; any failure raises and exits nonzero):
    card runs held to its plain version (K8 also to the host DP); then 512
    reads of the R10 set on the card, K1, K4 and K2 at their first launch
    (a full wave of 128 reads) and K8 at its largest round held to their
-   plain versions and timed with their bounds;
+   plain versions (K8 also to the host DP) and timed with their bounds;
 8. chain: index -> call-methylation on the card (the golden set, whole
    and as --shard 0/2 and 1/2) -> meth-freq (with and without -s) ->
    freq-merge of the shards: the whole run's calls within f5c's
@@ -132,6 +136,10 @@ FORCE_BUDGET, FORCE_WIN = 1_000_000, 300  # every golden read windowed
 K9_WAVE_READS = 512         # [pores]: the R10 set timed at a full wave
 K9_WAVE_MIN = 128           # reads in its first ABEA launch (a wave)
 SYNTH_WIN = 1000
+# K8 at golden x85's largest eventalign round (128 chunks) by this
+# script's span, as the one-block-a-chunk kernel of f97def0 took it
+# (PERF.md: NVIDIA H100 80GB HBM3, 700 W)
+K8_ONE_BLOCK_MS = 0.1218
 EVENTS_PAIRS = 10           # --profile: golden x85 host/device events pairs
 DEVICE_EVENTS = ("--events-engine", "device")   # auto is host
 MIX_LONG, MIX_WIN = 20_000, 4096   # the long read's k-mers; windows
@@ -443,10 +451,14 @@ def hold_native(spy_calls, model) -> dict:
 def synthetic_k8k9(torch, dev) -> dict:
     """K9 on synthetic.event_signals (DNA of a few lengths, tiny values,
     the densest pattern; RNA) and the golden signals, and K8 on a
-    synthetic round of 300 mixed chunks, once as the wrapper places the
-    movement tables and once with every table in global memory: each held
-    to its plain version and to the host code.  Returns fields to
-    print."""
+    synthetic round of 300 mixed chunks, on two rounds of the
+    partition's edge chunks (synthetic.viterbi_edge_shapes: 1 to REG_CAP
+    k-mers on the register kernel, to 400 on the tiled one; 1 to 4,000
+    events) and on 100 chunks of synthetic.viterbi_far_round (events, gm
+    or gs outside the fast division's range: the register kernel's
+    __fdiv_rn fill), each once as the wrapper places the movement tables
+    and once with every table in global memory: each held to its plain
+    version and to the host code.  Returns fields to print."""
     import numpy as np
 
     from f5c_tpu_torch import datasets, synthetic
@@ -466,15 +478,21 @@ def synthetic_k8k9(torch, dev) -> dict:
         np.cumsum([p.shape[0] for p in pas], out=off[1:])
         calls["events"].append(((torch.from_numpy(np.concatenate(pas)).to(
             dev), torch.from_numpy(off).to(dev), rna), {}))
-    x = synthetic.viterbi_round(rng, nuc, 300)
     tables = [torch.as_tensor(np.asarray(t, np.float32), device=dev)
               for t in (nuc.level_mean, nuc.level_stdv, nuc.level_log_stdv)]
-    vargs = (torch.from_numpy(x["spec_i32"]).to(dev),
-             torch.from_numpy(x["spec_f32"]).to(dev), hmm.viterbi_consts(),
-             torch.from_numpy(x["rank_pool"]).to(dev),
-             torch.from_numpy(x["ev_pool"]).to(dev), *tables,
-             hmm.viterbi_max_path(x["spec_i32"][:, 2], x["spec_i32"][:, 5]))
-    calls["viterbi"].append((vargs, {}))
+    for shapes in (None, *(synthetic.viterbi_edge_shapes(
+            viterbi_cuda.GROUP, viterbi_cuda.REG_CAP, tiled)
+            for tiled in (False, True)), "far"):
+        x = (synthetic.viterbi_far_round(rng, nuc, 100) if shapes == "far"
+             else synthetic.viterbi_round(rng, nuc, 300, shapes=shapes))
+        vargs = (torch.from_numpy(x["spec_i32"]).to(dev),
+                 torch.from_numpy(x["spec_f32"]).to(dev),
+                 hmm.viterbi_consts(),
+                 torch.from_numpy(x["rank_pool"]).to(dev),
+                 torch.from_numpy(x["ev_pool"]).to(dev), *tables,
+                 hmm.viterbi_max_path(x["spec_i32"][:, 2],
+                                      x["spec_i32"][:, 5]))
+        calls["viterbi"].append((vargs, {}))
     err = compare_launches(calls, torch)
     held = hold_native(calls, nuc)
     cap = viterbi_cuda.TABLE_SMEM_MAX
@@ -1137,6 +1155,7 @@ def k9_full_wave(tmp, torch, card, kernel_mods, nuc_path, meth_opts,
     import numpy as np
 
     from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.models import load_model_file
     from f5c_tpu_torch.ops import (_build, abea, abea_cuda, hmm, hmm_cuda,
                                    hmm_meta, viterbi_cuda)
 
@@ -1161,6 +1180,8 @@ def k9_full_wave(tmp, torch, card, kernel_mods, nuc_path, meth_opts,
     vit_a, vit_kw = max(spy.calls["viterbi"],
                         key=lambda c: int(c[0][0].shape[0]))
     del spy
+    held = hold_native({"viterbi": [(vit_a, vit_kw)]},
+                       load_model_file(nuc_path))
     kernels = {
         "abea_fill": ((fill_a, fill_kw),
                       lambda: abea_cuda.abea_fill(*fill_a, **fill_kw),
@@ -1202,6 +1223,9 @@ def k9_full_wave(tmp, torch, card, kernel_mods, nuc_path, meth_opts,
         hmm_max_km=hmm_kw["max_km"], viterbi_chunks=int(vit_a[0].shape[0]),
         viterbi_cells=int((vit_spec[:, 2].astype(np.int64)
                            * vit_spec[:, 5]).sum()),
+        viterbi_chunks_vs_host=held["viterbi"],
+        viterbi_ns_per_row=(
+            f"{1e6 * timed['viterbi']['ms'] / int(vit_spec[:, 5].max()):.1f}"),
         vs_plain=err, k9_ms=json.dumps(timed, separators=(",", ":")),
         fill_ns_per_band=f"{1e6 * timed['abea_fill']['ms'] / chain:.1f}",
         walk_ns_per_step=f"{1e6 * timed['abea_walk']['ms'] / steps:.1f}",
@@ -1907,6 +1931,10 @@ def main(argv: list[str]) -> int:
                                * vit_spec[:, 5]).sum()),
             viterbi_longest_chain=int((vit_spec[:, 2] + 2 * vit_spec[:, 5])
                                       .max()),
+            viterbi_group=viterbi_cuda.GROUP,
+            viterbi_ns_per_row=(f"{1e6 * timings['viterbi'][0]
+                                   / int(vit_spec[:, 5].max()):.1f}"),
+            viterbi_vs_one_block=f"{timings['viterbi'][0] / K8_ONE_BLOCK_MS:.3f}",
             walls_host_events=[round(w, 3) for w in walls["host"]],
             walls_device_events=[round(w, 3) for w in walls["device"]],
             walls_ea_native=[round(w, 3) for w in ea_scale["native"]],

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "f5c_abea_fill_window": [_vp] * 15 + [_int] * 6 + [_vp],
     "f5c_abea_walk_window": [_vp] * 5 + [_int] * 4 + [_vp],
     "f5c_viterbi_rounds": [_vp] * 12 + [_int] * 4 + [_vp],
+    "f5c_viterbi_division_probe": [_vp] * 4 + [_int] + [_vp],
     "f5c_events_detect": [_vp] * 10 + [_int] * 3 + [_vp],
     "f5c_events_peaks": [_vp] * 6 + [_int] * 4 + [_vp],
     "f5c_events_assemble": [_vp] * 9 + [_int] + [_vp],

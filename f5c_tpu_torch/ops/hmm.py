@@ -289,21 +289,103 @@ def viterbi_rounds_plain(spec_i32, spec_f32, consts, rank_pool, ev_pool,
         b_new = torch.where(same_b, b_b, b_m)
         m_full = torch.cat([ninf_col, m_new], dim=1)
         b_full = torch.cat([ninf_col, b_new], dim=1)
-        c1 = lp_mk + m_full[:, :-1]
-        c2 = lp_b3 + b_full[:, :-1]
-        c = torch.where(c1 > c2, c1, c2)
-        d = c - ig
-        incl = torch.cummax(d, dim=1).values
-        cp = torch.cat([ninf_col, incl[:, :-1]], dim=1)
+        incl, kc = skip_chain(lp_mk + m_full[:, :-1], lp_b3 + b_full[:, :-1],
+                              ig)
         k_new = ig + incl
-        kc = torch.where(cp >= d, HMT_FROM_PREV_K,
-                         torch.where(c2 == c, HMT_FROM_PREV_B,
-                                     HMT_FROM_PREV_M)).to(torch.uint8)
         tab[row - 1, :, 1:] = frm | (same_b.to(torch.uint8) << 3) | (kc << 4)
         M = torch.where(active, m_full, M)
         B = torch.where(active, b_full, B)
         Kst = torch.where(active, torch.cat([ninf_col, k_new], dim=1), Kst)
     return _viterbi_backtrace(tab, nk, ne, max_path, movs, n_steps)
+
+
+def skip_chain(c1, c2, ig):
+    """The KMER_SKIP chain of one event row, the cummax form of
+    viterbi_rounds_plain: c1, c2 f32 [N, K] the candidates from column
+    b-1's MATCH and BAD_EVENT (lp_mk + M, lp_b3 + B), ig f32 [K] the
+    offsets (b-1) lp_kk.  K_b = max(c_b, K_{b-1} + lp_kk) is ig + the
+    running max of d = max(c1, c2) - ig.  Returns (incl: that running
+    max, f32 [N, K]; each column's code u8 [N, K]: PREV_K when the running
+    max before the column is >= d, else PREV_B on c2 == c, else
+    PREV_M)."""
+    c = torch.where(c1 > c2, c1, c2)
+    d = c - ig
+    incl = torch.cummax(d, dim=1).values
+    cp = torch.cat([torch.full_like(d[:, :1], NEG_INF), incl[:, :-1]], dim=1)
+    return incl, _skip_codes(cp, d, c2, c)
+
+
+def _skip_codes(cp, d, c2, c):
+    return torch.where(cp >= d, HMT_FROM_PREV_K,
+                       torch.where(c2 == c, HMT_FROM_PREV_B,
+                                   HMT_FROM_PREV_M)).to(torch.uint8)
+
+
+def skip_chain_partitioned(c1, c2, ig, group: int, items: int,
+                           lanes: str = "shuffle"):
+    """Plain model of csrc/viterbi.cu's KMER_SKIP running max: skip_chain
+    with the running max taken as a kernel takes it.  Lane l of ``group``
+    holds columns l*items .. l*items + items-1 of a tile of group x items
+    columns.  ``lanes="carry"`` (viterbi_regs_kernel, whose chunk is one
+    tile): lane l receives the running max through lane l-1's last item
+    (its i_out, a wavefront step late; -inf for lane 0) and runs it over
+    its own items in order.  ``lanes="shuffle"`` (viterbi_tiled_kernel's
+    skip_scan, tiles carried from one to the next): each lane takes a
+    serial prefix max over its items, the lanes' totals an inclusive scan
+    in log2(group) rounds of shfl_up (a lane below the offset keeps its
+    value), and the exclusive value -- the carry for lane 0, else
+    max(carry, lane l-1's inclusive total) -- is combined back into each
+    item.  Every max is the select ``a > b ? a : b`` with its operands in
+    the kernel's order (the kernels take it with fmaxf: the same value,
+    their operands being never -0 or NaN).  Returns what skip_chain
+    returns."""
+    def sel(a, b):
+        return torch.where(a > b, a, b)
+
+    c = torch.where(c1 > c2, c1, c2)
+    d = c - ig
+    N, K = d.shape
+    tw = group * items
+    if lanes == "carry" and K > tw:
+        raise ValueError("skip_chain_partitioned: the register kernel "
+                         "holds at most group x items columns")
+    lane_ids = torch.arange(group, device=d.device)[None, :]
+    incl = torch.empty_like(d)
+    cp = torch.empty_like(d)
+    carry = torch.full((N,), NEG_INF, dtype=d.dtype, device=d.device)
+    for t0 in range(0, K, tw):
+        n = min(tw, K - t0)
+        x = torch.full((N, tw), NEG_INF, dtype=d.dtype, device=d.device)
+        x[:, :n] = d[:, t0:t0 + n]
+        x = x.view(N, group, items)
+        if lanes == "carry":
+            run = carry                 # lane 0's: column 0 is -inf
+            inc, before = [], []
+            for lane in range(group):   # run = lane l-1's i_out
+                for j in range(items):
+                    before.append(run)
+                    run = sel(run, x[:, lane, j])
+                    inc.append(run)
+            inc, before = torch.stack(inc, 1), torch.stack(before, 1)
+        else:
+            lp = [x[:, :, 0]]
+            for j in range(1, items):
+                lp.append(sel(lp[-1], x[:, :, j]))
+            t = lp[-1]
+            off = 1
+            while off < group:
+                up = torch.cat([t[:, :off], t[:, :-off]], dim=1)
+                t = torch.where(lane_ids >= off, sel(up, t), t)
+                off *= 2
+            up = torch.cat([t[:, :1], t[:, :-1]], dim=1)
+            ex = torch.where(lane_ids == 0, carry[:, None],
+                             sel(carry[:, None], up))
+            inc = torch.stack([sel(ex, v) for v in lp], dim=2)
+            before = torch.stack([ex] + [sel(ex, v) for v in lp[:-1]], dim=2)
+            carry = sel(carry, t[:, -1])
+        incl[:, t0:t0 + n] = inc.reshape(N, tw)[:, :n]
+        cp[:, t0:t0 + n] = before.reshape(N, tw)[:, :n]
+    return incl, _skip_codes(cp, d, c2, c)
 
 
 def _viterbi_backtrace(tab, nk, ne, max_path: int, movs, n_steps):

@@ -334,37 +334,43 @@ def peak_probe_batches(rng, golden=()) -> list[dict]:
 
 
 def viterbi_round(rng, model, n_chunks: int, n_ref=(12, 105),
-                  events_per_kmer=(0.5, 2.0)) -> dict:
+                  events_per_kmer=(0.5, 2.0), shapes=None) -> dict:
     """One lockstep round of eventalign chunks (layout: ops/hmm.py): each
     chunk a random window of ``n_ref`` bases (a range) whose events
     follow its k-mers with noise, its ranks forward or backward in the
-    rank pool and its events read with stride +1 or -1.  Returns the
-    pools, both specs and, per chunk, the arguments of
-    ``native.viterbi_chunk``."""
+    rank pool and its events read with stride +1 or -1.  ``shapes``, a
+    list of (k-mers, events, event stride, rank stride), fixes those of
+    each chunk instead (n_chunks is its length).  Returns the pools, both
+    specs and, per chunk, the arguments of ``native.viterbi_chunk``."""
     from .ops.hmm import viterbi_read_params
 
+    if shapes is not None:
+        n_chunks = len(shapes)
     rk_parts, ev_parts, chunks = [], [], []
     spec_i32 = np.zeros((n_chunks, 6), np.int32)
     spec_f32 = np.zeros((n_chunks, 6), np.float32)
     rk_off = ev_off = 0
     for i in range(n_chunks):
-        seq = random_seq(rng, int(rng.integers(n_ref[0], n_ref[1] + 1)))
-        ranks = model.kmer_ranks(seq).astype(np.int32)
+        n_bases = (int(rng.integers(n_ref[0], n_ref[1] + 1))
+                   if shapes is None else shapes[i][0] + model.k - 1)
+        ranks = model.kmer_ranks(random_seq(rng, n_bases)).astype(np.int32)
         n_k = ranks.shape[0]
-        epk = rng.uniform(*events_per_kmer)
-        n_ev = max(int(n_k * epk), 2)
+        n_ev = (max(int(n_k * rng.uniform(*events_per_kmer)), 2)
+                if shapes is None else shapes[i][1])
         which = np.sort(rng.integers(0, n_k, n_ev))
         means = (model.level_mean[ranks[which]]
                  + rng.normal(0, 1.0, n_ev)).astype(np.float32)
         pool = rng.uniform(60, 120, n_ev + 40).astype(np.float32)
-        stride = int(rng.choice([1, -1]))
+        stride = (int(rng.choice([1, -1])) if shapes is None
+                  else shapes[i][2])
         if stride == 1:
             e0 = 20
             pool[e0:e0 + n_ev] = means
         else:
             pool[20:20 + n_ev] = means[::-1]
             e0 = 20 + n_ev - 1
-        r_stride = int(rng.choice([1, -1]))
+        r_stride = (int(rng.choice([1, -1])) if shapes is None
+                    else shapes[i][3])
         if r_stride == 1:
             rk_parts.append(ranks)
             r0 = 0
@@ -390,6 +396,51 @@ def viterbi_round(rng, model, n_chunks: int, n_ref=(12, 105),
                 ev_pool=np.concatenate(ev_parts).astype(np.float32),
                 spec_i32=spec_i32, spec_f32=spec_f32, chunks=chunks)
 
+
+
+def viterbi_far_round(rng, model, n_chunks: int) -> dict:
+    """viterbi_round with values outside the range in which the chunk
+    Viterbi's register kernel takes its fast division (csrc/viterbi.cu
+    div_rn: events and gm in +-[2^-30, 2^30) or 0, gs in +-[2^-60,
+    2^60)), so that it takes __fdiv_rn: of every five chunks, one has an
+    event of 3 x 2^31, one an event of 2^-40, one gm near 2^31 (its
+    shift), one gs of at least 2^60 (its var, 2^62, with the read's log
+    var and transitions made from it), and one stays in range."""
+    from .ops.hmm import viterbi_read_params
+
+    x = viterbi_round(rng, model, n_chunks)
+    si, sf = x["spec_i32"], x["spec_f32"]
+    for i, c in enumerate(x["chunks"]):
+        kind = i % 5
+        if kind < 2:
+            r = int(rng.integers(0, c["n_events"]))
+            v = np.float32(3 * 2.0 ** 31 if kind == 0 else 2.0 ** -40)
+            c["ev_pool"][c["e_start"] + r * c["stride"]] = v
+            x["ev_pool"][si[i, 3] + r * si[i, 4]] = v
+        elif kind == 2:
+            c["shift"] = sf[i, 1] = 2.0 ** 31
+        elif kind == 3:
+            c["var"] = 2.0 ** 62
+            sf[i, 2:] = (c["var"], *viterbi_read_params(
+                c["events_per_base"], c["var"]))
+    return x
+
+
+def viterbi_edge_shapes(group: int, reg_cap: int, tiled: bool) -> list:
+    """Chunk shapes (k-mers, events, event stride, rank stride) at the
+    edges of the chunk Viterbi kernel's partition (csrc/viterbi.cu): k-mers
+    1, 2, group - 1, group, group + 1, 96, 97 and reg_cap (the register
+    kernel's capacity), with ``tiled`` also reg_cap + 1 and 400 (the tiled
+    kernel), each with 1, 2 and 4,000 events; both strides of each kind."""
+    ks = [1, 2, group - 1, group, group + 1, 96, 97, reg_cap]
+    if tiled:
+        ks += [reg_cap + 1, 400]
+    shapes = []
+    for k in ks:
+        for n_ev in (1, 2, 4000):
+            i = len(shapes)
+            shapes.append((k, n_ev, 1 - 2 * (i % 2), 1 - 2 * (i // 2 % 2)))
+    return shapes
 
 # --- other pore configurations: R10.4.1-style 9-mer DNA, RNA004 --------
 

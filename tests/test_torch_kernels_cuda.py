@@ -20,7 +20,8 @@ import torch
 
 from f5c_tpu_torch.models import builtin_model
 from f5c_tpu_torch import synthetic
-from f5c_tpu_torch.ops import abea, abea_cuda, hmm, hmm_cuda, hmm_meta
+from f5c_tpu_torch.ops import (abea, abea_cuda, hmm, hmm_cuda, hmm_meta,
+                               viterbi_cuda)
 
 pytestmark = pytest.mark.needs_cuda
 
@@ -295,19 +296,37 @@ def test_events_peak_probe_matches_model(cuda, chunk):
 
 
 @pytest.mark.parametrize("table_cap", [None, 1])
-def test_viterbi_kernel_matches_plain_and_native(cuda, monkeypatch,
+@pytest.mark.parametrize("case", ["mixed", "edges", "edges_tiled", "k9",
+                                  "far"])
+def test_viterbi_kernel_matches_plain_and_native(cuda, monkeypatch, case,
                                                  table_cap):
-    """The chunk Viterbi (csrc/viterbi.cu) on a synthetic round of mixed
-    chunks, with the movement tables in shared memory and all in the
-    global scratch: the plain version's bytes, native.viterbi_chunk's
-    movements."""
+    """The chunk Viterbi (csrc/viterbi.cu), the movement tables in shared
+    memory and all in the global scratch: the plain version's bytes,
+    native.viterbi_chunk's movements, chunk by chunk.  The rounds: 200
+    mixed chunks; the partition's edge chunks
+    (synthetic.viterbi_edge_shapes: 1, 2, G - 1, G, G + 1, 96, 97 and
+    REG_CAP k-mers on the register kernel, with REG_CAP + 1 and 400 on the
+    tiled one; 1, 2 and 4,000 events; both strides of each kind); 200
+    mixed chunks on the synthetic R10 9-mer tables; 200 mixed chunks, four
+    of every five with an event, gm or gs outside the range of the
+    register kernel's fast division, which so takes __fdiv_rn
+    (synthetic.viterbi_far_round)."""
     from f5c_tpu_torch import native
-    from f5c_tpu_torch.ops import viterbi_cuda
 
     if table_cap is not None:
         monkeypatch.setattr(viterbi_cuda, "TABLE_SMEM_MAX", table_cap)
-    model = builtin_model("dna_r9_nucleotide")
-    x = synthetic.viterbi_round(np.random.default_rng(18), model, 200)
+    model = (synthetic.k9_models()[0] if case == "k9"
+             else builtin_model("dna_r9_nucleotide"))
+    rng = np.random.default_rng(18)
+    if case in ("edges", "edges_tiled"):
+        x = synthetic.viterbi_round(rng, model, 0, shapes=(
+            synthetic.viterbi_edge_shapes(viterbi_cuda.GROUP,
+                                          viterbi_cuda.REG_CAP,
+                                          case == "edges_tiled")))
+    elif case == "far":
+        x = synthetic.viterbi_far_round(rng, model, 200)
+    else:
+        x = synthetic.viterbi_round(rng, model, 200)
     t = _on({k: v for k, v in x.items() if k != "chunks"}, cuda)
     tables = [torch.as_tensor(np.asarray(v, np.float32), device=cuda)
               for v in (model.level_mean, model.level_stdv,
@@ -327,3 +346,34 @@ def test_viterbi_kernel_matches_plain_and_native(cuda, monkeypatch,
             c["scale"], c["shift"], c["var"], c["events_per_base"],
             model.level_mean, model.level_stdv, model.level_log_stdv)
         assert np.array_equal(hmm.unpack_movements(movs[i], int(ns[i])), mv)
+
+
+def test_viterbi_fast_division_is_div_rn(cuda):
+    """The chunk Viterbi's fast division (csrc/viterbi.cu div_rn<true>,
+    taken where events and gm lie in +-[2^-30, 2^30) or are 0 and gs in
+    [2^-60, 2^60)) against __fdiv_rn, bit for bit: a = e - gm as the
+    kernel forms it and b = gs, over that whole range (exponents at its
+    edges, ties of e and gm, zeros) and at eventalign's values."""
+    from f5c_tpu_torch.ops import viterbi_cuda
+
+    rng = np.random.default_rng(31)
+    n = 1 << 21
+
+    def moderate(lo, hi):
+        x = (rng.uniform(1, 2, n) * np.exp2(rng.integers(lo, hi + 1, n))
+             ).astype(np.float32) * rng.choice([-1, 1], n)
+        x[rng.random(n) < 0.01] = 0
+        return x.astype(np.float32)
+
+    e, gm, gs = moderate(-30, 29), moderate(-30, 29), moderate(-60, 59)
+    gs[gs == 0] = 1
+    tie = rng.random(n) < 0.05
+    gm[tie] = e[tie]
+    near = rng.random(n) < 0.2                   # pA-like events and levels
+    e[near] = rng.uniform(40, 160, near.sum())
+    gm[near] = rng.uniform(40, 160, near.sum())
+    gs[near] = rng.uniform(0.5, 8, near.sum())
+    a = torch.from_numpy(e).to(cuda) - torch.from_numpy(gm).to(cuda)
+    fast, ref = viterbi_cuda.division_probe(a, torch.from_numpy(gs).to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(fast.view(torch.int32), ref.view(torch.int32))

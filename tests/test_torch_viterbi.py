@@ -172,15 +172,96 @@ def test_viterbi_round_of_mixed_chunks():
     _check_round(chunks, rank_stride=1)
 
 
+@pytest.mark.parametrize("case", ["edges", "edges_tiled", "far"])
+def test_viterbi_plain_edge_chunks(case):
+    """The plain version (the wrapper's CPU path) on the kernel's edge
+    chunks (synthetic.viterbi_edge_shapes: 1 to 400 k-mers, 1 to 4,000
+    events, both strides of each kind) and on chunks whose events, gm or
+    gs lie outside the register kernel's fast division
+    (synthetic.viterbi_far_round): native.viterbi_chunk's movements, byte
+    for byte."""
+    from f5c_tpu_torch import synthetic
+
+    model = builtin_model("dna_r9_nucleotide")
+    rng = np.random.default_rng(23)
+    if case == "far":
+        x = synthetic.viterbi_far_round(rng, model, 40)
+    else:
+        shapes = synthetic.viterbi_edge_shapes(
+            viterbi_cuda.GROUP, viterbi_cuda.REG_CAP, case == "edges_tiled")
+        x = synthetic.viterbi_round(rng, model, 0, shapes=shapes)
+        assert [c["n_kmers"] for c in x["chunks"]] == [s[0] for s in shapes]
+    tables = [torch.from_numpy(np.asarray(t, np.float32)) for t in (
+        model.level_mean, model.level_stdv, model.level_log_stdv)]
+    mp = hmm.viterbi_max_path(x["spec_i32"][:, 2], x["spec_i32"][:, 5])
+    movs, ns = viterbi_cuda.viterbi_rounds(
+        torch.from_numpy(x["spec_i32"]), torch.from_numpy(x["spec_f32"]),
+        hmm.viterbi_consts(), torch.from_numpy(x["rank_pool"]),
+        torch.from_numpy(x["ev_pool"]), *tables, mp)
+    for i, c in enumerate(x["chunks"]):
+        mv = native.viterbi_chunk(
+            c["ranks"], c["rank_start"], c["rank_stride"], c["n_kmers"],
+            c["ev_pool"], c["e_start"], c["stride"], c["n_events"],
+            c["scale"], c["shift"], c["var"], c["events_per_base"],
+            model.level_mean, model.level_stdv, model.level_log_stdv)
+        np.testing.assert_array_equal(
+            hmm.unpack_movements(movs[i].numpy(), int(ns[i])), mv)
+
+
+def _check_plan(nk, ne):
+    """The invariants of a launch plan: the slots a permutation of the
+    chunks, most events first; one chunk a block, its table of at most
+    TABLE_SMEM_MAX bytes in shared memory after the block's state (the
+    tiled path's, above REG_CAP k-mers) where it fits in MAX_SMEM; every
+    other table in the scratch, packed in slot order."""
+    plan, scratch, smem = viterbi_cuda.table_plan(nk, ne)
+    order, off = plan
+    assert sorted(order) == list(range(nk.shape[0]))
+    assert list(ne[order]) == sorted(ne, reverse=True)
+    k_max = int(nk.max())
+    base = (viterbi_cuda.state_bytes(k_max)
+            if k_max > viterbi_cuda.REG_CAP else 0)
+    cells = ne[order] * (nk[order] + 1)
+    glob, used = 0, 0
+    for s in range(nk.shape[0]):
+        if (cells[s] <= viterbi_cuda.TABLE_SMEM_MAX
+                and base + cells[s] <= viterbi_cuda.MAX_SMEM):
+            assert off[s] == -1 - base
+            used = max(used, cells[s])
+        else:
+            assert off[s] == glob
+            glob += cells[s]
+    assert scratch == glob
+    assert smem == base + used <= viterbi_cuda.MAX_SMEM
+    return plan, scratch, smem
+
+
 def test_viterbi_table_plan():
-    """The wrapper keeps a chunk's movement table in shared memory up to
-    TABLE_SMEM_MAX and moves larger ones to the global scratch, packed."""
+    """The launch plan: the round's chunks ordered by event count, one a
+    block; a block keeps its chunk's movement table in shared memory up
+    to TABLE_SMEM_MAX (after its state on the tiled path, above REG_CAP
+    k-mers) and the others go to the global scratch, packed."""
     nk = np.array([95, 95, 95, 20], np.int64)
     ne = np.array([170, 4000, 100, 9000], np.int64)
-    off, scratch, smem = viterbi_cuda.table_plan(nk, ne)
-    big = ne * (nk + 1) > viterbi_cuda.TABLE_SMEM_MAX
-    assert (off[~big] == -1).all()
-    assert list(off[big]) == [0, 4000 * 96]
-    assert scratch == 4000 * 96 + 9000 * 21
-    assert smem == viterbi_cuda.state_bytes(95) + 170 * 96
-    assert smem <= viterbi_cuda.MAX_SMEM
+    plan, scratch, smem = _check_plan(nk, ne)
+    assert list(plan[0]) == [3, 1, 0, 2]
+    assert list(plan[1]) == [0, 9000 * 21, -1, -1]
+    assert scratch == 9000 * 21 + 4000 * 96
+    assert smem == 170 * 96
+    # full rounds of eventalign-sized chunks, some tables in the scratch
+    rng = np.random.default_rng(7)
+    for hi_ev in (400, 3000):
+        nk = rng.integers(1, 97, 300)
+        ne = rng.integers(1, hi_ev, 300)
+        _check_plan(nk, ne)
+    # the tiled path: its state first
+    nk = np.array([400, 129, 3], np.int64)
+    ne = np.array([50, 4000, 2], np.int64)
+    plan, scratch, smem = _check_plan(nk, ne)
+    base = viterbi_cuda.state_bytes(400)
+    assert list(plan[0]) == [1, 0, 2]
+    assert list(plan[1]) == [0, -1 - base, -1 - base]
+    assert scratch == 4000 * 130 and smem == base + 50 * 401
+    plan, scratch, smem = viterbi_cuda.table_plan(np.zeros(0, np.int64),
+                                                  np.zeros(0, np.int64))
+    assert plan.shape == (2, 0) and scratch == smem == 0
