@@ -88,7 +88,17 @@ Phases (each prints one line; any failure raises and exits nonzero):
    tolerance of meth.exp, the shards' rows those of the whole run, and
    freq-merge of the shards equal to meth-freq of the whole run;
 9. profile_dir: call-methylation --profile-dir DIR on the card; the
-   torch.profiler trace in DIR names the fill, walk and HMM kernels.
+   torch.profiler trace in DIR names the fill, walk and HMM kernels;
+10. parallel: f5c_tpu_torch.parallel.mesh_check on the 510 reads of
+    phase 5 over two slots of cuda:0 (align + HMM of call-methylation
+    and device-engine eventalign bit for bit the single-device run; K1,
+    K4, K2 and K8 launched in both slots; the transfer table), then two
+    ``--dist`` processes on cuda:0 (a gloo group on the host) running
+    call-methylation (each rank with its own --profile-dir, whose trace
+    names the fill, walk and HMM kernels) and eventalign --summary on the
+    golden set: the merged files byte for byte a single-process run's,
+    the parts removed.  One card: this measures the layer's overhead,
+    not scaling.
 
 It prints a JSON line of the kernels (launches on the main path, max
 abs error against the plain version, ms (for K8 and K9 the kernels
@@ -120,6 +130,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1308,13 +1319,134 @@ def profile_dir_phase(tmp, golden) -> None:
                         "--profile-dir", prof])
     traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
     text = read_text(traces[0]) if len(traces) == 1 else ""
-    names = {n: text.count(n) for n in ("abea_fill_kernel",
-                                        "abea_walk_kernel",
-                                        "hmm_forward_meta_kernel")}
+    names = {n: text.count(n) for n in PROFILED_KERNELS}
     say("profile_dir", traces=len(traces), wall_s=f"{wall:.3f}",
         trace_mb=f"{len(text) / 2**20:.2f}", kernel_mentions=names)
     if len(traces) != 1 or min(names.values()) == 0:
         raise AssertionError("profile_dir: no trace, or a kernel missing")
+
+
+PROFILED_KERNELS = ("abea_fill_kernel", "abea_walk_kernel",
+                    "hmm_forward_meta_kernel")
+
+
+def dist_ranks(tmp, tag: str, argv: list, n: int = 2,
+               profile: bool = False) -> tuple[float, list]:
+    """``n`` processes of ``python -m f5c_tpu_torch.cli *argv --dist`` on
+    this host (a gloo group at a free port of 127.0.0.1, retried once on
+    a fresh port; with ``profile`` each rank with its own --profile-dir
+    ``tmp/<tag>_prof<rank>``).  Returns (wall seconds, [(exit code,
+    stderr)]); every process has ended."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    for attempt in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs, errs = [], []
+        t0 = time.time()
+        for r in range(n):
+            errs.append(tempfile.TemporaryFile(mode="w+"))
+            prof = []
+            if profile:
+                prof = ["--profile-dir", os.path.join(tmp, f"{tag}_prof{r}")]
+                shutil.rmtree(prof[1], ignore_errors=True)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "f5c_tpu_torch.cli", *argv, *prof,
+                 "--dist", "--dist-coordinator", f"127.0.0.1:{port}",
+                 "--dist-nprocs", str(n), "--dist-rank", str(r)],
+                cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                stderr=errs[-1]))
+        try:
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        res = []
+        for rc, f in zip(rcs, errs):
+            f.seek(0)
+            res.append((rc, f.read()))
+            f.close()
+        if attempt == 0 and any("EADDRINUSE" in e for _, e in res):
+            continue
+        return wall, res
+
+
+def parallel_phase(tmp, card, golden, scale) -> None:
+    """Phase 10, [parallel]: the multi-device and multi-process layer on
+    the one card.  (a) parallel/mesh_check on golden x85 (510 reads, one
+    batch) over two slots of cuda:0: call-methylation's align + HMM and
+    device-engine eventalign re-alignment bit for bit the single-device
+    run, K1, K4, K2 and K8 launched in both slots (counted per slot), the
+    transfer table printed.  (b) two --dist ranks on cuda:0 (gloo on the
+    host): call-methylation (each rank with its own --profile-dir, whose
+    trace names the fill, walk and HMM kernels) and eventalign --summary
+    on the golden set, the merged files the bytes of a single-process
+    run, the part files removed.  Two slots or ranks on one card measure
+    the dispatch's overhead, not scaling."""
+    import glob
+
+    import torch
+    from f5c_tpu_torch.parallel import mesh, mesh_check
+
+    t_phase = time.time()
+    dev = torch.device("cuda", 0)
+    res = mesh_check.run_mesh_parity(scale, [dev, dev])
+    print("[parallel] transfer table (sharded run):\n"
+          + mesh.transfer_table(), flush=True)
+    slots = res["slots"]
+    missing = [f"{k}.slot{d}" for k in ("abea_fill", "abea_walk",
+                                        "hmm_forward", "viterbi")
+               for d in (0, 1) if slots.get(f"{k}.slot{d}", 0) == 0]
+    say("parallel_mesh", card=card.replace(" ", "_"), reads=res["reads"],
+        eventalign_rows=res["ea_rows"], k8_rounds=res["rounds"],
+        bit_identical=True,
+        single_s=f"{res['single_s']:.3f}",
+        sharded_s=f"{res['sharded_s']:.3f}",
+        slot_launches={k: v for k, v in sorted(slots.items())},
+        missing=missing)
+    if missing:
+        raise AssertionError(f"parallel: {missing} not launched")
+
+    def f(name):
+        return os.path.join(tmp, name)
+
+    run_argv(["call-methylation", "--meth-out-version", "1",
+              *data_argv(golden, f("par_single.tsv"))])
+    run_argv(["eventalign", "--summary", f("par_single_ea.sum"),
+              *data_argv(golden, f("par_single_ea.tsv"))])
+    wall_m, ranks_m = dist_ranks(
+        tmp, "par", ["call-methylation", "--meth-out-version", "1",
+                     *data_argv(golden, f("par_dist.tsv"))], profile=True)
+    wall_e, ranks_e = dist_ranks(
+        tmp, "par_ea", ["eventalign", "--summary", f("par_dist_ea.sum"),
+                        *data_argv(golden, f("par_dist_ea.tsv"))])
+    failed = [err[-2000:] for rc, err in ranks_m + ranks_e if rc != 0]
+    same = {name: same_bytes((f(f"par_single{x}"), f(f"par_dist{x}")))
+            if not failed else False
+            for name, x in (("meth", ".tsv"), ("eventalign", "_ea.tsv"),
+                            ("summary", "_ea.sum"))}
+    parts_left = sorted(os.path.basename(p)
+                        for p in glob.glob(f("par_*.part*")))
+    mentions = []
+    for r in range(2):
+        traces = glob.glob(os.path.join(f(f"par_prof{r}"),
+                                        "*.pt.trace.json"))
+        text = read_text(traces[0]) if len(traces) == 1 else ""
+        mentions.append({n: text.count(n) for n in PROFILED_KERNELS})
+    say("parallel_dist", card=card.replace(" ", "_"), ranks=2,
+        exit_codes=[rc for rc, _ in ranks_m + ranks_e],
+        byte_identical=same, parts_left=parts_left,
+        rank_kernel_mentions=mentions,
+        dist_meth_wall_s=f"{wall_m:.3f}", dist_ea_wall_s=f"{wall_e:.3f}",
+        seconds=f"{time.time() - t_phase:.1f}")
+    if (failed or not all(same.values()) or parts_left
+            or min(min(m.values()) for m in mentions) == 0):
+        raise AssertionError("parallel: --dist failed"
+                             + "".join(f"\n{e}" for e in failed))
 
 
 def run_once(torch, fn):
@@ -1966,6 +2098,8 @@ def main(argv: list[str]) -> int:
                                 read_counts)
         chain_phase(tmp, card, source, truth, reset_counts, read_counts)
         profile_dir_phase(tmp, golden)
+        # 10. the mesh over two slots of the card, and two --dist ranks
+        parallel_phase(tmp, card, golden, scale)
 
         errs = {name: max(e.get(name, 0) for e in (
             err_golden, err_synth, err_scale, err_golden_win,

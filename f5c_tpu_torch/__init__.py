@@ -1,4 +1,4 @@
-"""f5c-tpu on PyTorch and CUDA: the call-methylation path on one NVIDIA GPU.
+"""f5c-tpu on PyTorch and CUDA: the call-methylation path on NVIDIA GPUs.
 
 A port of the JAX package ``f5c_tpu`` (which stays the reference).  The
 port stands alone: it imports nothing of ``f5c_tpu``.  The host layers it
@@ -16,6 +16,9 @@ re-implemented here:
                                kernels (``csrc/*.cu``) for ABEA and the
                                profile-HMM forward pass
 - ``f5c_tpu_torch.pipeline``  the call-methylation runtime
+- ``f5c_tpu_torch.parallel``  dispatches dealt over several devices
+                               (``mesh``) and ``--dist`` over processes
+                               (``distributed``, a gloo group)
 - ``f5c_tpu_torch.cli``       ``python -m f5c_tpu_torch.cli call-methylation``
 
 The package never imports ``jax``.

@@ -29,6 +29,17 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"unknown device {name!r} (expected 'cuda' or 'cpu')")
 
 
+def canonical_device(device) -> torch.device:
+    """``device`` with its index: an unindexed ``cuda`` is the calling
+    thread's current card, so that two names of one card compare equal
+    (without a card it stays as named, and a launch on it raises)."""
+    device = torch.device(device)
+    if (device.type == "cuda" and device.index is None
+            and torch.cuda.is_available()):
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on ``device``; a CUDA upload goes through
     pinned memory without blocking the host."""
@@ -39,18 +50,19 @@ def h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class HostCopy:
-    """Device tensors on their way to host memory: the copy into pinned
-    buffers is queued on the current stream; ``wait()`` blocks until it
-    has landed and returns NumPy arrays."""
+    """Device tensors (all on one device) on their way to host memory: the
+    copy into pinned buffers is queued on that device's current stream;
+    ``wait()`` blocks until it has landed and returns NumPy arrays."""
 
     def __init__(self, tensors):
         if tensors[0].is_cuda:
+            dev = tensors[0].device
             self._host = [torch.empty(t.shape, dtype=t.dtype,
                                       pin_memory=True) for t in tensors]
             for h, t in zip(self._host, tensors):
                 h.copy_(t, non_blocking=True)
             self._done = torch.cuda.Event()
-            self._done.record()
+            self._done.record(torch.cuda.current_stream(dev))
         else:
             self._host = list(tensors)
             self._done = None

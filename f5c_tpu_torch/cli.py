@@ -26,8 +26,12 @@ for the kernels' plain PyTorch versions on the host.  ``index``,
 ``meth-freq``, ``freq-merge`` and ``fast5-to-blow5`` run on the host
 only.  ``--profile-dir DIR`` writes a torch.profiler trace of a
 call-methylation or eventalign run to DIR (TensorBoard layout; the card's
-activity, or the host's with ``--device cpu``).  ``--dist`` is not ported
-yet (ROADMAP.md).
+activity, or the host's with ``--device cpu``).  ``--dist -o FILE`` runs
+call-methylation or eventalign as one rank of several processes
+(``parallel/distributed.py``: a gloo group, manual or under torchrun);
+each rank writes its read shard to ``FILE.partN`` and rank 0 merges the
+parts into the single-process bytes.  Several visible cards are used
+as a mesh (``parallel/mesh.py``; ``F5C_TPU_MESH=0`` turns it off).
 """
 
 from __future__ import annotations
@@ -82,13 +86,15 @@ def _add_common_meth_args(p):
                         "(multi-host data parallelism; merge outputs "
                         "with cat / freq-merge)")
     p.add_argument("--dist", action="store_true",
-                   help="multi-process mode via jax.distributed: each "
-                        "process takes its read shard, writes "
-                        "<output>.partN, and process 0 merges to the "
-                        "exact single-process output (requires -o FILE)")
+                   help="multi-process mode over torch.distributed (a "
+                        "gloo group): each process takes its read shard, "
+                        "writes <output>.partN, and process 0 merges to "
+                        "the exact single-process output (requires -o "
+                        "FILE)")
     p.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
-                   help="coordination service address for manual --dist "
-                        "launches (auto-detected on TPU pods/SLURM)")
+                   help="rendezvous address (rank 0 listens) for manual "
+                        "--dist launches; without it, torchrun's env:// "
+                        "variables are read")
     p.add_argument("--dist-rank", type=int, default=None,
                    help="this process's rank for manual --dist launches")
     p.add_argument("--dist-nprocs", type=int, default=None,
@@ -205,6 +211,7 @@ def _make_pipeline(args, device):
     if args.shard:
         i, n = args.shard.split("/")
         opt.shard_index, opt.shard_count = int(i), int(n)
+    opt.dist_markers = args.dist
     opt.ultra_thresh = args.ultra_thresh
     opt.skip_ultra = args.skip_ultra
     return Pipeline(args.bam, args.genome, args.reads, opt, device)
@@ -253,6 +260,55 @@ def _add_resquiggle_args(p) -> None:
                         "PyTorch versions")
     p.add_argument("-o", "--output", default="-")
     _add_cuda_compat_args(p, full=False)
+
+
+def _dist_fail_note(dist_rank) -> None:
+    """A failed --dist rank does not merge partial parts: it says so and
+    leaves the group, and its peers error out of the barrier (at once, or
+    at the timeout)."""
+    if dist_rank is not None:
+        from .parallel import distributed
+
+        print(f"[f5c-tpu] rank {dist_rank} failed before the output "
+              "barrier; part files are left unmerged and peer ranks "
+              "will error out of the barrier.", file=sys.stderr)
+        distributed.shutdown()
+
+
+def _dist_start(ap, args, timeout_s: float):
+    """--dist: check the options (the JAX CLI's refusals, exit 2), join
+    the process group before the device is resolved, and retarget -o and
+    --summary at this rank's part files.  Returns (rank, nprocs, the
+    outputs to merge)."""
+    if args.output in ("-", None):
+        ap.error("--dist requires -o FILE (per-process part files "
+                 "are merged into it)")
+    if (args.print_events or args.print_banded_aln or args.print_scaling
+            or args.print_raw):
+        # debug dumps carry no per-read merge markers, so the k-way
+        # part merge would drop or misplace them
+        ap.error("--dist is incompatible with --print-* debug "
+                 "dumps; run them single-process")
+    if args.write_dump or args.read_dump:
+        # the raw dump is a single sequential file in full-BAM order:
+        # ranks would clobber it on write and mis-assign records on read
+        ap.error("--dist is incompatible with --write-dump/"
+                 "--read-dump; create/use dumps single-process")
+    from .parallel import distributed
+
+    try:
+        rank, nprocs = distributed.initialize(
+            args.dist_coordinator, args.dist_nprocs, args.dist_rank,
+            timeout_s=timeout_s)
+    except ValueError as e:
+        ap.error(str(e))
+    args.shard = f"{rank}/{nprocs}"
+    outputs = [args.output]
+    args.output = distributed.part_path(args.output, rank)
+    if getattr(args, "summary", None):
+        outputs.append(args.summary)
+        args.summary = distributed.part_path(args.summary, rank)
+    return rank, nprocs, outputs
 
 
 def _maybe_profile(args, device):
@@ -346,7 +402,9 @@ def _freq_merge(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def main(argv=None, dist_timeout_s: float = 3600) -> int:
+    """The command line; ``dist_timeout_s`` bounds --dist's rendezvous and
+    barriers (the JAX package's hour by default)."""
     argv = argv if argv is not None else sys.argv[1:]
     ap = argparse.ArgumentParser(
         prog="f5c-tpu-torch",
@@ -394,8 +452,6 @@ def main(argv=None) -> int:
                  "meth-freq": _meth_freq, "freq-merge": _freq_merge}
     if args.cmd in host_only:
         return host_only[args.cmd](args)
-    if getattr(args, "dist", False):
-        ap.error("--dist: not ported to f5c_tpu_torch yet (ROADMAP.md)")
     knobs = [n for n in ("disable_cuda", "cuda_dev_id", "cuda_mem_frac",
                          "cuda_block_size", "cuda_max_lf", "cuda_avg_epk",
                          "cuda_max_epk") if getattr(args, n, None) is not None]
@@ -405,6 +461,30 @@ def main(argv=None) -> int:
               + ": accepted for f5c compatibility, no effect",
               file=sys.stderr)
 
+    dist_rank = None
+    if getattr(args, "dist", False):
+        from .parallel import distributed
+
+        dist_rank, dist_nprocs, dist_outputs = _dist_start(ap, args,
+                                                           dist_timeout_s)
+    try:
+        code, pipe = _run(args)
+    except BaseException:
+        _dist_fail_note(dist_rank)
+        raise
+    if code:
+        _dist_fail_note(dist_rank)
+        return code
+    if dist_rank is not None:
+        distributed.finalize(dist_outputs, dist_rank, dist_nprocs)
+    return pipe.report() if pipe is not None else code
+
+
+def _run(args):
+    """A device subcommand: (exit code, the pipeline of a call-methylation
+    or eventalign run once its output is closed, else None).  The code is
+    2 for a device or engine the run cannot take; a pipeline's report
+    comes after a --dist merge, as in the JAX CLI."""
     from .backend import resolve_device
 
     try:
@@ -415,7 +495,7 @@ def main(argv=None) -> int:
             engine_name(device)
     except (RuntimeError, ValueError) as e:
         print(f"f5c-tpu-torch: error: {e}", file=sys.stderr)
-        return 2
+        return 2, None
     if args.cmd == "resquiggle":
         from .pipeline.resquiggle import run_resquiggle
 
@@ -426,7 +506,7 @@ def main(argv=None) -> int:
             if out is not sys.stdout:
                 out.close()
         pipe.report()
-        return 0
+        return 0, None
     pipe = _make_pipeline(args, device)
     out = _out_fh(args.output)
     try:
@@ -440,7 +520,7 @@ def main(argv=None) -> int:
     finally:
         if out is not sys.stdout:
             out.close()
-    return pipe.report()
+    return 0, pipe
 
 
 if __name__ == "__main__":

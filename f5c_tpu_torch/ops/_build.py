@@ -11,6 +11,7 @@ while none of them changes.  Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -164,6 +165,21 @@ def check_tensor(name, t, dtype, ndim, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+@contextlib.contextmanager
+def device_guard(device):
+    """Make ``device`` the calling thread's current CUDA device for a
+    launch.  The C entry points launch on the runtime's current device,
+    and the functions they call (``cudaFuncSetAttribute``,
+    ``cudaGetDevice``) act on it too, so every wrapper enters this guard
+    around its launch: the tensors' device, not whatever device the
+    caller left current.  On a CPU device it does nothing."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device):
+        yield
 
 
 def stream_handle(device) -> int:

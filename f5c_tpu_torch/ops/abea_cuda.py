@@ -3,8 +3,8 @@
 ``ops/abea.py``.  Counterpart of ``f5c_tpu/ops/abea_ring.py``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs, launches on torch's current stream and counts the launch in
-``launches``.  There is no fallback: a CUDA tensor launches the kernel or
+outputs, launches on torch's current stream of the tensors' device (under
+``_build.device_guard``) and counts the launch in ``launches``.  There is no fallback: a CUDA tensor launches the kernel or
 raises.
 """
 
@@ -59,14 +59,15 @@ def abea_fill(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
     llk = torch.empty(n_bands, dtype=torch.int32, device=dev)
     start_e = torch.empty(B, dtype=torch.int32, device=dev)
     lib = _build.library()
-    err = lib.f5c_abea_fill(
-        ev_pool.data_ptr(), ev_off.data_ptr(), ev_len.data_ptr(),
-        rk_pool.data_ptr(), rk_off.data_ptr(), rk_len.data_ptr(),
-        level_mean.data_ptr(), level_stdv.data_ptr(),
-        level_log_stdv.data_ptr(), params.data_ptr(), band_off.data_ptr(),
-        trace.data_ptr(), llk.data_ptr(), start_e.data_ptr(),
-        level_mean.shape[0], B, fill_smem_bytes(),
-        _build.stream_handle(dev))
+    with _build.device_guard(dev):
+        err = lib.f5c_abea_fill(
+            ev_pool.data_ptr(), ev_off.data_ptr(), ev_len.data_ptr(),
+            rk_pool.data_ptr(), rk_off.data_ptr(), rk_len.data_ptr(),
+            level_mean.data_ptr(), level_stdv.data_ptr(),
+            level_log_stdv.data_ptr(), params.data_ptr(),
+            band_off.data_ptr(), trace.data_ptr(), llk.data_ptr(),
+            start_e.data_ptr(), level_mean.shape[0], B, fill_smem_bytes(),
+            _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_fill", err)
     launches["abea_fill"] += 1
     return trace, llk, start_e
@@ -101,11 +102,12 @@ def abea_walk(trace, llk, band_off, start_e, rk_len, byte_off,
     flat = torch.zeros(n_bytes, dtype=torch.uint8, device=dev)
     n = torch.empty(B, dtype=torch.int32, device=dev)
     lib = _build.library()
-    err = lib.f5c_abea_walk(
-        trace.data_ptr(), llk.data_ptr(), band_off.data_ptr(),
-        start_e.data_ptr(), rk_len.data_ptr(), byte_off.data_ptr(),
-        flat.data_ptr(), n.data_ptr(), B, walk_smem_bytes(),
-        _build.stream_handle(dev))
+    with _build.device_guard(dev):
+        err = lib.f5c_abea_walk(
+            trace.data_ptr(), llk.data_ptr(), band_off.data_ptr(),
+            start_e.data_ptr(), rk_len.data_ptr(), byte_off.data_ptr(),
+            flat.data_ptr(), n.data_ptr(), B, walk_smem_bytes(),
+            _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_walk", err)
     launches["abea_walk"] += 1
     return flat, n

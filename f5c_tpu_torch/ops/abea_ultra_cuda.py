@@ -3,8 +3,8 @@
 ``ops/abea_ultra.py``.  Counterpart of ``f5c_tpu/ops/abea_ultra.py``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs, launches on torch's current stream and counts the launch in
-``launches``.  There is no fallback: a CUDA tensor launches the kernel or
+outputs, launches on torch's current stream of the tensors' device (under
+``_build.device_guard``) and counts the launch in ``launches``.  There is no fallback: a CUDA tensor launches the kernel or
 raises.
 """
 
@@ -69,15 +69,16 @@ def abea_fill_window(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
                          device=dev)
         lk = torch.empty((B, n_win * win), dtype=torch.int32, device=dev)
     lib = _build.library()
-    err = lib.f5c_abea_fill_window(
-        ev_pool.data_ptr(), ev_off.data_ptr(), ev_len.data_ptr(),
-        rk_pool.data_ptr(), rk_off.data_ptr(), rk_len.data_ptr(),
-        level_mean.data_ptr(), level_stdv.data_ptr(),
-        level_log_stdv.data_ptr(), params.data_ptr(), band_off.data_ptr(),
-        state.data_ptr(), out.data_ptr(),
-        tr.data_ptr() if trace else None, lk.data_ptr() if trace else None,
-        level_mean.shape[0], B, base, win, n_win, fill_smem_bytes(),
-        _build.stream_handle(dev))
+    with _build.device_guard(dev):
+        err = lib.f5c_abea_fill_window(
+            ev_pool.data_ptr(), ev_off.data_ptr(), ev_len.data_ptr(),
+            rk_pool.data_ptr(), rk_off.data_ptr(), rk_len.data_ptr(),
+            level_mean.data_ptr(), level_stdv.data_ptr(),
+            level_log_stdv.data_ptr(), params.data_ptr(),
+            band_off.data_ptr(), state.data_ptr(), out.data_ptr(),
+            tr.data_ptr() if trace else None,
+            lk.data_ptr() if trace else None, level_mean.shape[0], B, base,
+            win, n_win, fill_smem_bytes(), _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_fill_window", err)
     launches["abea_fill_window"] += 1
     return out, tr, lk
@@ -108,10 +109,11 @@ def abea_walk_window(trace, llk, base: int, kst, flat, byte_off):
         raise ValueError(f"abea_walk_window: unsupported device {dev}")
     kst, flat = kst.clone(), flat.clone()
     lib = _build.library()
-    err = lib.f5c_abea_walk_window(
-        trace.data_ptr(), llk.data_ptr(), kst.data_ptr(),
-        byte_off.data_ptr(), flat.data_ptr(), base, trace.shape[1], B,
-        walk_smem_bytes(), _build.stream_handle(dev))
+    with _build.device_guard(dev):
+        err = lib.f5c_abea_walk_window(
+            trace.data_ptr(), llk.data_ptr(), kst.data_ptr(),
+            byte_off.data_ptr(), flat.data_ptr(), base, trace.shape[1], B,
+            walk_smem_bytes(), _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_walk_window", err)
     launches["abea_walk_window"] += 1
     return kst, flat

@@ -7,7 +7,8 @@
 The wrapper checks device, dtype, shape and contiguity, allocates the
 scratch (28 bytes a sample; the host wrapper bounds a call's samples by
 ``SAMPLE_BUDGET``) and the outputs, launches on torch's current
-stream and counts the call in ``launches``.  The peak scan runs one block
+stream of the tensors' device (under ``_build.device_guard``) and counts
+the call in ``launches``.  The peak scan runs one block
 a read, its chunks of samples side by side to an exact fixed point
 (``events_device.peak_scan_chunked`` is its plain model); the block's
 threads follow the launch's longest read (``events_device.peak_threads``).
@@ -74,14 +75,15 @@ def detect_events(pa_pool, sig_off, rna: bool = False):
     n_ev, fixed, rnd = (torch.empty(B, dtype=i32, device=dev)
                         for _ in range(3))
     lib = _build.library()
-    stream = _build.stream_handle(dev)
-    span = _build.span_start(dev)
-    err = lib.f5c_events_detect(
-        pa_pool.data_ptr(), sig_off.data_ptr(), s.data_ptr(), q.data_ptr(),
-        t1.data_ptr(), t2.data_ptr(), bnd.data_ptr(), n_ev.data_ptr(),
-        fixed.data_ptr(), rnd.data_ptr(), B, int(rna), peak_threads(max_len),
-        stream)
-    _build.span_stop(span, dev)
+    with _build.device_guard(dev):
+        stream = _build.stream_handle(dev)
+        span = _build.span_start(dev)
+        err = lib.f5c_events_detect(
+            pa_pool.data_ptr(), sig_off.data_ptr(), s.data_ptr(),
+            q.data_ptr(), t1.data_ptr(), t2.data_ptr(), bnd.data_ptr(),
+            n_ev.data_ptr(), fixed.data_ptr(), rnd.data_ptr(), B, int(rna),
+            peak_threads(max_len), stream)
+        _build.span_stop(span, dev)
     _build.check_error(lib, "f5c_events_detect", err)
     counts = torch.stack([n_ev, fixed, rnd]).cpu().numpy().astype(np.int64)
     fixed_reads["events"] += int(counts[1].sum())
@@ -93,12 +95,13 @@ def detect_events(pa_pool, sig_off, rna: bool = False):
     start = torch.empty(E, dtype=i64, device=dev)
     length, mean, stdv = (torch.empty(E, dtype=f32, device=dev)
                           for _ in range(3))
-    span = _build.span_start(dev)
-    err = lib.f5c_events_assemble(
-        s.data_ptr(), q.data_ptr(), sig_off.data_ptr(), bnd.data_ptr(),
-        ev_off.data_ptr(), start.data_ptr(), length.data_ptr(),
-        mean.data_ptr(), stdv.data_ptr(), B, stream)
-    _build.span_stop(span, dev)
+    with _build.device_guard(dev):
+        span = _build.span_start(dev)
+        err = lib.f5c_events_assemble(
+            s.data_ptr(), q.data_ptr(), sig_off.data_ptr(), bnd.data_ptr(),
+            ev_off.data_ptr(), start.data_ptr(), length.data_ptr(),
+            mean.data_ptr(), stdv.data_ptr(), B, stream)
+        _build.span_stop(span, dev)
     _build.check_error(lib, "f5c_events_assemble", err)
     launches["events"] += 1
     return ev_off, start, length, mean, stdv
@@ -160,12 +163,13 @@ def peaks_from_tracks(t1, t2, sig_off, rna: bool = False, chunk: int = 0):
     n_ev, rnd = (torch.empty(B, dtype=torch.int32, device=dev)
                  for _ in range(2))
     lib = _build.library()
-    span = _build.span_start(dev)
-    err = lib.f5c_events_peaks(
-        pad[0].data_ptr(), pad[1].data_ptr(), sig_off.data_ptr(),
-        bnd.data_ptr(), n_ev.data_ptr(), rnd.data_ptr(), B, int(rna), chunk,
-        threads, _build.stream_handle(dev))
-    _build.span_stop(span, dev)
+    with _build.device_guard(dev):
+        span = _build.span_start(dev)
+        err = lib.f5c_events_peaks(
+            pad[0].data_ptr(), pad[1].data_ptr(), sig_off.data_ptr(),
+            bnd.data_ptr(), n_ev.data_ptr(), rnd.data_ptr(), B, int(rna),
+            chunk, threads, _build.stream_handle(dev))
+        _build.span_stop(span, dev)
     _build.check_error(lib, "f5c_events_peaks", err)
     bnd_h, ne = bnd.cpu().numpy(), n_ev.cpu().numpy()
     peaks = [bnd_h[o + 2 * i + 1:o + 2 * i + ne[i]].tolist()

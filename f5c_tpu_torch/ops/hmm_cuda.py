@@ -6,8 +6,8 @@ K2), a CPU tensor to the plain PyTorch version
 ``f5c_tpu/ops/hmm_pallas.py`` fed by ``build_inputs``).
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
-output, launches on torch's current stream and counts the launch in
-``launches``.  There is no fallback: a CUDA tensor launches the kernel or
+output, launches on torch's current stream of the tensors' device (under
+``_build.device_guard``) and counts the launch in ``launches``.  There is no fallback: a CUDA tensor launches the kernel or
 raises.
 
 The kernel scores windows of <= ``NARROW`` k-mers two to a warp; the
@@ -117,12 +117,14 @@ def hmm_forward_meta(meta, packed_ref, read_tab, ev_pool, level_mean,
                          f"exceed the kernel's {MAX_KW}")
     out = torch.empty(N, dtype=torch.float32, device=dev)
     lib = _build.library()
-    err = lib.f5c_hmm_forward_meta(
-        meta.data_ptr(), packed_ref.data_ptr(), read_tab.data_ptr(),
-        ev_pool.data_ptr(), level_mean.data_ptr(), level_stdv.data_ptr(),
-        level_log_stdv.data_ptr(), CONSTS.ctypes.data, out.data_ptr(),
-        4 * packed_ref.shape[0], level_mean.shape[0], k, int(allow_pre),
-        int(allow_post), N, n_narrow, kw_smem, _build.stream_handle(dev))
+    with _build.device_guard(dev):
+        err = lib.f5c_hmm_forward_meta(
+            meta.data_ptr(), packed_ref.data_ptr(), read_tab.data_ptr(),
+            ev_pool.data_ptr(), level_mean.data_ptr(),
+            level_stdv.data_ptr(), level_log_stdv.data_ptr(),
+            CONSTS.ctypes.data, out.data_ptr(), 4 * packed_ref.shape[0],
+            level_mean.shape[0], k, int(allow_pre), int(allow_post), N,
+            n_narrow, kw_smem, _build.stream_handle(dev))
     _build.check_error(lib, "f5c_hmm_forward_meta", err)
     launches["hmm_forward"] += 1
     return out
@@ -142,9 +144,10 @@ def hmm_window_ranks(meta, packed_ref, read_tab, k: int, kw: int):
         raise ValueError("hmm_window_ranks: meta is not 16-byte aligned")
     out = torch.empty((meta.shape[0], kw), dtype=torch.int32, device=dev)
     lib = _build.library()
-    err = lib.f5c_hmm_window_ranks(
-        meta.data_ptr(), packed_ref.data_ptr(), read_tab.data_ptr(),
-        out.data_ptr(), 4 * packed_ref.shape[0], k, kw, meta.shape[0],
-        _build.stream_handle(dev))
+    with _build.device_guard(dev):
+        err = lib.f5c_hmm_window_ranks(
+            meta.data_ptr(), packed_ref.data_ptr(), read_tab.data_ptr(),
+            out.data_ptr(), 4 * packed_ref.shape[0], k, kw, meta.shape[0],
+            _build.stream_handle(dev))
     _build.check_error(lib, "f5c_hmm_window_ranks", err)
     return out

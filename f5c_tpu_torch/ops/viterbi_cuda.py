@@ -6,8 +6,8 @@ of ``f5c_tpu/ops/hmm.py:hmm_viterbi_rounds``.
 The wrapper checks device, dtype, shape and contiguity, plans the launch
 (``table_plan``: the chunks ordered by event count, one chunk a block,
 each movement table in the block's shared memory or in a global
-scratch), launches on torch's current stream and counts the launch in
-``launches``.  There is no fallback: a CUDA tensor launches the kernel
+scratch), launches on torch's current stream of the tensors' device
+(under ``_build.device_guard``) and counts the launch in ``launches``.  There is no fallback: a CUDA tensor launches the kernel
 or raises.
 """
 
@@ -127,15 +127,16 @@ def viterbi_rounds(spec_i32, spec_f32, consts, rank_pool, ev_pool,
     plan_dev = torch.from_numpy(plan).to(dev, non_blocking=True)
     k_max = max(int(spec[:, 2].max()) if N else 1, 1)
     lib = _build.library()
-    span = _build.span_start(dev)
-    err = lib.f5c_viterbi_rounds(
-        spec_i32.data_ptr(), spec_f32.data_ptr(), consts.ctypes.data,
-        rank_pool.data_ptr(), ev_pool.data_ptr(), level_mean.data_ptr(),
-        level_stdv.data_ptr(), level_log_stdv.data_ptr(),
-        plan_dev.data_ptr(), scratch.data_ptr(), movs.data_ptr(),
-        n_steps.data_ptr(), N, max_path, k_max, smem,
-        _build.stream_handle(dev))
-    _build.span_stop(span, dev)
+    with _build.device_guard(dev):
+        span = _build.span_start(dev)
+        err = lib.f5c_viterbi_rounds(
+            spec_i32.data_ptr(), spec_f32.data_ptr(), consts.ctypes.data,
+            rank_pool.data_ptr(), ev_pool.data_ptr(), level_mean.data_ptr(),
+            level_stdv.data_ptr(), level_log_stdv.data_ptr(),
+            plan_dev.data_ptr(), scratch.data_ptr(), movs.data_ptr(),
+            n_steps.data_ptr(), N, max_path, k_max, smem,
+            _build.stream_handle(dev))
+        _build.span_stop(span, dev)
     _build.check_error(lib, "f5c_viterbi_rounds", err)
     launches["viterbi"] += 1
     return movs, n_steps
@@ -155,8 +156,9 @@ def division_probe(a, b):
         raise ValueError("division_probe: a and b differ in shape")
     fast, ref = torch.empty_like(a), torch.empty_like(a)
     lib = _build.library()
-    err = lib.f5c_viterbi_division_probe(
-        a.data_ptr(), b.data_ptr(), fast.data_ptr(), ref.data_ptr(),
-        a.shape[0], _build.stream_handle(dev))
+    with _build.device_guard(dev):
+        err = lib.f5c_viterbi_division_probe(
+            a.data_ptr(), b.data_ptr(), fast.data_ptr(), ref.data_ptr(),
+            a.shape[0], _build.stream_handle(dev))
     _build.check_error(lib, "f5c_viterbi_division_probe", err)
     return fast, ref

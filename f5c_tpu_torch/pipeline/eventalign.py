@@ -14,12 +14,17 @@ module's, copied.  What reached JAX is re-implemented here:
   Viterbi kernel (K8, ``ops/viterbi_cuda.py``, csrc/viterbi.cu) in one
   launch, against rank and event pools uploaded once a batch -- with or
   without small rounds on the host.  ``auto`` is the native engine, as
-  measured on the card (``EventalignEngine``).  The mesh branch
-  (``shard_viterbi_rounds``) is not ported (ROADMAP Queue 1 d).
+  measured on the card (``EventalignEngine``).  Under a mesh
+  (``parallel/mesh.py``) a round of at least two chunks a device deals its
+  chunks over the devices (``mesh.shard_viterbi_rounds``), against pools
+  uploaded once a batch to every device.
 - ``run_eventalign`` is the batch loop and emission of the JAX module's
   ``run_eventalign`` (eventalign.py:1012-1128) with this engine.  The
   re-alignment of a wave runs while the card fills the next wave; reads
-  aligned by windows (ultra-long) finish after the waves.
+  aligned by windows (ultra-long) finish after the waves.  Under
+  ``--dist`` every read's rows, in the output and in ``--summary``,
+  follow a ``#f5c-dist`` marker line (``parallel/distributed.py``); a SAM
+  run's header comes from part 0 in the merge.
 """
 
 from __future__ import annotations
@@ -34,12 +39,13 @@ import numpy as np
 import torch
 
 from .. import native
-from ..backend import h2d
+from ..backend import canonical_device, h2d
 from ..io.bam import (CDEL, CDIFF, CEQUAL, CHARD_CLIP, CINS, CMATCH,
                       CREF_SKIP, CSOFT_CLIP)
-from ..ops import viterbi_cuda
 from ..ops.hmm import (decode_viterbi_movements, unpack_movements,
                        viterbi_consts, viterbi_max_path, viterbi_read_params)
+from ..parallel import mesh
+from ..parallel.distributed import MARKER
 from .writer import AsyncWriter
 
 _COMP = np.zeros(256, dtype=np.uint8)
@@ -604,21 +610,24 @@ class EventalignEngine:
     ``python`` runs a round on the host (the probed crossover of the
     probes below when unset); ``device`` runs every round through the
     kernel's wrapper.  The records are the same bytes whichever engine
-    runs."""
+    runs.  ``devices`` (``parallel/mesh.py:data_devices``, ``device``
+    first) deals the device engine's rounds over several devices."""
 
     def __init__(self, model, region_start: int = -1, region_end: int = -1,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"), devices=None):
         self.engine = engine_name(device)
         native.get_lib()     # raises when the host library cannot load
         self.model = model
         self.k = model.k
         self.region_start = region_start
         self.region_end = region_end
-        self.device = device
+        self.device = canonical_device(device)
+        self.devices = mesh.data_devices(self.device, devices)
         env_max = os.environ.get("F5C_TPU_VIT_HOST_MAX")
         self.host_round_max = int(env_max) if env_max is not None else None
-        self._tables = None
-        self._consts = viterbi_consts()
+        self._tables: dict = {}     # device -> the model's tables there
+        self._pools: dict = {}      # device -> (rank pool, event pool, tables)
+        self._consts = viterbi_consts()     # host constants
         self.stats = {"rounds_device": 0, "rounds_host": 0, "chunks": 0}
 
     def _probed_round_max(self) -> int:
@@ -709,18 +718,25 @@ class EventalignEngine:
             states.append(st)
         host_max = self.host_round_max if engine == "python" else 0
         if rank_parts:
-            # the pools go up once a batch; a round ships only its specs
-            dev = self.device
-            self._rank_pool = h2d(np.concatenate(rank_parts).astype(
-                np.int32, copy=False), dev)
-            self._ev_pool = h2d(np.concatenate(ev_parts).astype(
-                np.float32, copy=False), dev)
-            if self._tables is None:
-                m = self.model
-                self._tables = tuple(h2d(np.asarray(t, np.float32),
-                                                dev)
-                                     for t in (m.level_mean, m.level_stdv,
-                                               m.level_log_stdv))
+            # the pools go up once a batch, to every device; a round ships
+            # only its specs
+            rank_pool = np.concatenate(rank_parts).astype(np.int32,
+                                                          copy=False)
+            ev_pool = np.concatenate(ev_parts).astype(np.float32, copy=False)
+            m = self.model
+            self._pools = {}
+            for dev in dict.fromkeys(self.devices or [self.device]):
+                if dev not in self._tables:
+                    self._tables[dev] = tuple(
+                        h2d(np.asarray(t, np.float32), dev)
+                        for t in (m.level_mean, m.level_stdv,
+                                  m.level_log_stdv))
+                self._pools[dev] = (h2d(rank_pool, dev), h2d(ev_pool, dev),
+                                    self._tables[dev])
+            if self.devices:
+                mesh.record_dispatch(
+                    "viterbi_pools", 0, rank_pool.nbytes + ev_pool.nbytes
+                    + mesh.table_bytes(m), len(self.devices))
 
         active = [st for st in states if not st.done]
         while active:
@@ -804,12 +820,9 @@ class EventalignEngine:
                            spec["stride"], spec["n_events"])
             spec_f32[i] = (sc.scale, sc.shift, sc.var, *st.params)
         max_path = viterbi_max_path(spec_i32[:, 2], spec_i32[:, 5])
-        dev = self.device
-        movs, n_steps = viterbi_cuda.viterbi_rounds(
-            h2d(spec_i32, dev), h2d(spec_f32, dev),
-            self._consts, self._rank_pool, self._ev_pool, *self._tables,
-            max_path, host_spec=spec_i32)
-        movs, n_steps = movs.cpu().numpy(), n_steps.cpu().numpy()
+        movs, n_steps = mesh.shard_viterbi_rounds(
+            mesh.slot_devices(self.devices, self.device, n), spec_i32,
+            spec_f32, self._consts, self._pools, max_path)
         for i, (st, spec) in enumerate(items):
             mv = unpack_movements(movs[i], int(n_steps[i]))
             ev_idx, k_idx, ps = decode_viterbi_movements(
@@ -884,10 +897,8 @@ class EventalignEngine:
 
 def run_eventalign(pipe, args, out=sys.stdout) -> None:
     """The CLI entry: batch loop + emission in BAM order (meth_main mode 1),
-    on the port's ``Pipeline``."""
-    if pipe.opt.dist_markers:
-        raise NotImplementedError("--dist is not ported to f5c_tpu_torch "
-                                  "yet (ROADMAP.md)")
+    on the port's ``Pipeline``, its rounds dealt over the pipeline's
+    devices."""
     sam = getattr(args, "sam", False)
     paf = getattr(args, "paf", False)
     m6anet = getattr(args, "m6anet", False)
@@ -898,7 +909,9 @@ def run_eventalign(pipe, args, out=sys.stdout) -> None:
     collapse = getattr(args, "collapse_events", False)
     rna = pipe.opt.rna
     engine = EventalignEngine(pipe.model, region_start=pipe.clip_start,
-                              region_end=pipe.clip_end, device=pipe.device)
+                              region_end=pipe.clip_end, device=pipe.device,
+                              devices=pipe.devices or [pipe.device])
+    dist = pipe.opt.dist_markers
     summary_fp = None
     if getattr(args, "summary", None):
         summary_fp = open(args.summary, "w")
@@ -949,12 +962,16 @@ def run_eventalign(pipe, args, out=sys.stdout) -> None:
                 contig = pipe.bam.references[r.tid]
                 ref_len = pipe.bam.ref_lengths[r.tid]
                 if summary_fp is not None and recs.ref_position.shape[0] > 0:
+                    if dist:
+                        summary_fp.write(f"{MARKER}{r.read_idx}\n")
                     summary_fp.write(summary_line(
                         r.read_idx, r.qname, r.signal_path, rna,
                         summarize_alignment(recs, r, r.nm), r.sample_rate,
                         r.scaling))
                 if recs.ref_position.shape[0] == 0:
                     continue
+                if dist:
+                    sink.write(f"{MARKER}{r.read_idx}\n")
                 if paf:
                     sink.write(emit_paf(recs, r, contig, ref_len,
                                         pipe.model.k, rna))

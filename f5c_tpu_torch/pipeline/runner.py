@@ -38,6 +38,15 @@ and the host loader's process pool (every load the port makes is inline
 or on the thread pool).  Slabs, ranks and outputs are
 ragged per read with int64 offsets.  The device is explicit: one
 ``torch.device``, passed in by the caller.
+
+Under a mesh (``Pipeline.devices``, ``parallel/mesh.py``) each ABEA
+dispatch of at least two reads a device deals its reads over the devices
+(``mesh.on_slots``), and the wave's HMM scoring follows its ABEA: each
+device scores its reads' windows against the event slab already on it.
+The windowed ABEA and the device event detector stay on the first
+device, as in the JAX runner.  With ``Options.dist_markers``
+(``--dist``) every read's rows follow a ``#f5c-dist`` marker line, for
+the merge of ``parallel/distributed.py``.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..backend import HostCopy, h2d
+from ..backend import HostCopy, canonical_device, h2d
 from ..constants import (ABEA_MAX_GAP_THRESHOLD, ABEA_MIN_AVG_LOG_EMISSION,
                          AVG_EVENTS_PER_KMER_MAX, DEFAULT_BATCH_BASES,
                          DEFAULT_BATCH_READS, DEFAULT_MIN_MAPQ,
@@ -78,6 +87,8 @@ from ..ops.abea_ultra import WIN_BANDS
 from ..ops.hmm import transition_params
 from ..ops.hmm_meta import pack_meta
 from ..ops.seq_ranks import pack_codes, pack_seqs, ranks_from_packed, seq_codes
+from ..parallel import mesh
+from ..parallel.distributed import MARKER
 from .methylation import MethCalls
 from .writer import AsyncWriter
 
@@ -128,7 +139,7 @@ class Options:
     # deterministically by read index (SURVEY §2.7 / parallel/mesh.py)
     shard_index: int = 0
     shard_count: int = 1
-    # jax.distributed mode (parallel/distributed.py): tag each read's
+    # --dist mode (parallel/distributed.py): tag each read's
     # output rows with a "#f5c-dist\t<read_idx>" marker line so shard
     # part-files k-way merge back into exact BAM order
     dist_markers: bool = False
@@ -362,7 +373,10 @@ def _model_kind(opt: Options) -> str:
 
 class Pipeline:
     """call-methylation / eventalign on one torch device (a CUDA card, or
-    the host running the kernels' plain PyTorch versions)."""
+    the host running the kernels' plain PyTorch versions), its ABEA and
+    HMM dispatches dealt over ``devices`` when there are several
+    (``parallel/mesh.py:data_devices``: every visible card by default;
+    an explicit list, ``device`` first, from the library API)."""
 
     WAVE = 128       # reads per ABEA launch
     INFLIGHT = 2     # launches left running while the host works
@@ -385,12 +399,13 @@ class Pipeline:
         self.bam = None
         self.genome = None
         self.readdb = None
-        self.device = device
+        self.device = canonical_device(device)
+        self.devices = mesh.data_devices(self.device)
         self._init_run_state()
         return self
 
     def __init__(self, bam_path: str, genome_path: str, reads_path: str,
-                 opt: Options, device: torch.device):
+                 opt: Options, device: torch.device, devices=None):
         self.opt = opt
         native.get_lib()     # raises when the host library cannot load
         if self.opt.slow5_path:
@@ -426,7 +441,8 @@ class Pipeline:
         else:
             self.cpg_model = builtin_model("dna_r9_cpg")
         self._model_kind = _model_kind(self.opt)
-        self.device = device
+        self.device = canonical_device(device)
+        self.devices = mesh.data_devices(self.device, devices)
         self._init_run_state()
         if self.opt.region_str:
             self.regions = parse_regions(self.opt.region_str)
@@ -449,9 +465,9 @@ class Pipeline:
         self.clip_start = -1
         self.clip_end = -1
         self._ultra_records = []
-        self._tables: dict[str, tuple] = {}
+        self._tables: dict[tuple, tuple] = {}   # (name, device) -> tables
         self._meth_states = None
-        self._events_stream = None
+        self._events_streams: dict = {}          # device -> K9's stream
 
     def _in_region(self, rec) -> bool:
         name = self.bam.references[rec.tid]
@@ -641,9 +657,11 @@ class Pipeline:
         pas = [np.ascontiguousarray(fetched[j][1][0], np.float32)
                for j in live]
         if self.device.type == "cuda":
-            if self._events_stream is None:
-                self._events_stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._events_stream):
+            stream = self._events_streams.get(self.device)
+            if stream is None:
+                stream = self._events_streams[self.device] = \
+                    torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
                 tables = events_cuda.detect_events_batch(pas, rna,
                                                          self.device)
         else:
@@ -712,18 +730,19 @@ class Pipeline:
         return pool
 
     # ---- device tables ---------------------------------------------------
-    def _model_tables(self, name: str, model):
-        if name not in self._tables:
-            t = tables_from_model(model, self.device)
-            self._tables[name] = (t["level_mean"], t["level_stdv"],
-                                  t["level_log_stdv"])
-        return self._tables[name]
+    def _model_tables(self, name: str, model, dev=None):
+        dev = self.device if dev is None else dev
+        if (name, dev) not in self._tables:
+            t = tables_from_model(model, dev)
+            self._tables[name, dev] = (t["level_mean"], t["level_stdv"],
+                                       t["level_log_stdv"])
+        return self._tables[name, dev]
 
-    def _nuc_dev_tables(self):
-        return self._model_tables("nuc", self.model)
+    def _nuc_dev_tables(self, dev=None):
+        return self._model_tables("nuc", self.model, dev)
 
-    def _cpg_dev_tables(self):
-        return self._model_tables("cpg", self.cpg_model)
+    def _cpg_dev_tables(self, dev=None):
+        return self._model_tables("cpg", self.cpg_model, dev)
 
     def supports_waves(self) -> bool:
         # --print-raw and the raw-dump cache emit/consume records in BAM
@@ -754,11 +773,28 @@ class Pipeline:
         return nb * (PAD + 4) * self.WAVE > self.TRACE_BYTES_BUDGET
 
     def _dispatch_abea(self, todo, windowed: bool = False):
-        """One ABEA launch for ``todo``: upload the event slab and the
-        2-bit sequences, rank on the device, fill, walk (unchunked, or by
-        windows of WIN_BANDS bands), and start the walk's copy back.
-        Returns the launch record for _finish_abea."""
-        dev = self.device
+        """One ABEA dispatch for ``todo``: under a mesh, with at least two
+        reads a device, its reads dealt over ``self.devices``, else one
+        launch on ``self.device`` (``mesh.on_slots``).  The windowed path
+        stays on ``self.device``, as the JAX runner's ``_align_ultra_one``
+        does.  Returns the launch record for _finish_abea: [(slot,
+        indices into todo, part)], a part per launched device
+        (``_launch_abea``)."""
+        devs = ([self.device] if windowed else
+                mesh.slot_devices(self.devices, self.device, len(todo)))
+        return mesh.on_slots(
+            "abea", mesh.deal_slots(devs, len(todo)),
+            lambda dev, idx: self._launch_abea([todo[i] for i in idx], dev,
+                                               windowed),
+            mesh.table_bytes(self.model))
+
+    def _launch_abea(self, todo, dev, windowed: bool = False):
+        """One ABEA launch for ``todo`` on ``dev``: upload the event slab
+        and the 2-bit sequences, rank on the device, fill, walk
+        (unchunked, or by windows of WIN_BANDS bands), and start the
+        walk's copy back.  Returns (part, bytes uploaded); the part is
+        (event slab on dev, reads' offsets in it, byte_off, params, the
+        walk's HostCopy)."""
         k = self.model.k
         ev_len = np.array([r.n_events for r in todo], np.int32)
         rk_len = np.array([len(r.seq) - k + 1 for r in todo], np.int32)
@@ -775,7 +811,7 @@ class Pipeline:
         slab_dev = h2d(slab, dev)
         rk_slab = ranks_from_packed(h2d(packed, dev), k)
         args = (slab_dev, h2d(ev_off, dev), h2d(ev_len, dev), rk_slab,
-                h2d(rk_off, dev), h2d(rk_len, dev), *self._nuc_dev_tables(),
+                h2d(rk_off, dev), h2d(rk_len, dev), *self._nuc_dev_tables(dev),
                 h2d(params, dev), h2d(band_off, dev), h2d(byte_off, dev))
         if windowed:
             flat, start_e, n = abea_ultra_cuda.abea_align_windowed(
@@ -787,38 +823,40 @@ class Pipeline:
                 *args, int(band_off[-1]), int(byte_off[-1]))
         self.stage_detail["align.n_dispatch"] += 1
         self.stage_detail["align.band_cells"] += float(band_off[-1]) * 128
-        self.stage_detail["align.h2d_bytes"] += slab.nbytes + packed.nbytes
-        return slab_dev, ev_off, byte_off, params, HostCopy([flat, start_e,
-                                                              n])
+        nbytes = slab.nbytes + packed.nbytes
+        self.stage_detail["align.h2d_bytes"] += nbytes
+        return (slab_dev, ev_off, byte_off, params,
+                HostCopy([flat, start_e, n])), nbytes
 
     def _finish_abea(self, todo, ranks, launch) -> None:
-        """Wait for a launch's walk, then decode + QC + postalign +
-        recalibrate each read on the host."""
-        _slab, _ev_off, byte_off, params, copy = launch
-        t0 = time.time()
-        flat, start_e, n = copy.wait()
-        dt = time.time() - t0
-        self.stage_time["align"] += dt
-        self.stage_detail["align.walk_sync"] += dt
-        self.stage_detail["align.d2h_bytes"] += flat.nbytes
-        t0 = time.time()
+        """Wait for each part of a dispatch's walk, then decode + QC +
+        postalign + recalibrate each of its reads on the host."""
+        for _slot, idx, (_slab, _ev_off, byte_off, params, copy) in launch:
+            t0 = time.time()
+            flat, start_e, n = copy.wait()
+            dt = time.time() - t0
+            self.stage_time["align"] += dt
+            self.stage_detail["align.walk_sync"] += dt
+            self.stage_detail["align.d2h_bytes"] += flat.nbytes
+            t0 = time.time()
+            part = [todo[i] for i in idx]
 
-        def post_one(i, r):
-            if start_e[i] < 0 or n[i] == 0:
-                r.status |= FAILED_ALIGNMENT
-                return
-            self._postalign_qc_one(
-                r, ranks[id(r)], flat[byte_off[i]:byte_off[i + 1]],
-                int(n[i]), int(start_e[i]), float(params[i, 0]),
-                float(params[i, 1]))
+            def post_one(i, r):
+                if start_e[i] < 0 or n[i] == 0:
+                    r.status |= FAILED_ALIGNMENT
+                    return
+                self._postalign_qc_one(
+                    r, ranks[id(r)], flat[byte_off[i]:byte_off[i + 1]],
+                    int(n[i]), int(start_e[i]), float(params[i, 0]),
+                    float(params[i, 1]))
 
-        pool = self._host_pool(len(todo))
-        if pool is not None:
-            list(pool.map(post_one, range(len(todo)), todo))
-        else:
-            for i, r in enumerate(todo):
-                post_one(i, r)
-        self.stage_time["scaling"] += time.time() - t0
+            pool = self._host_pool(len(part))
+            if pool is not None:
+                list(pool.map(post_one, range(len(part)), part))
+            else:
+                for i, r in enumerate(part):
+                    post_one(i, r)
+            self.stage_time["scaling"] += time.time() - t0
 
     def align_batch(self, batch):
         """ABEA for a loaded batch in one launch, and the reads routed to
@@ -892,10 +930,8 @@ class Pipeline:
                 ok = [r for r in todo
                       if not r.status and r.b2e_start is not None]
                 if ok:
-                    slab_dev, ev_off = launch[0], launch[1]
-                    pos = {id(r): i for i, r in enumerate(todo)}
                     st = self._meth_prepare_dispatch(
-                        ok, slab_dev, ev_off[[pos[id(r)] for r in ok]])
+                        ok, _hmm_parts(todo, ok, launch))
                     if st is not None:
                         self._meth_states.append(st)
                     self._meth_covered.update(id(r) for r in ok)
@@ -991,20 +1027,29 @@ class Pipeline:
                  if not r.status and r.b2e_start is not None]
         if not reads:
             return {}
-        ev_len = np.array([r.event_means.shape[0] for r in reads], np.int64)
-        slab = np.concatenate([r.event_means for r in reads]).astype(
-            np.float32, copy=False)
-        state = self._meth_prepare_dispatch(
-            reads, h2d(slab, self.device), ragged_offsets(ev_len)[:-1])
+        devs = mesh.slot_devices(self.devices, self.device, len(reads))
+        parts = []
+        for slot, dev, idx in mesh.deal_slots(devs, len(reads)):
+            ev_len = np.array([reads[i].event_means.shape[0] for i in idx],
+                              np.int64)
+            slab = np.concatenate([reads[i].event_means for i in idx]
+                                  ).astype(np.float32, copy=False)
+            parts.append((slot, dev, idx, h2d(slab, dev),
+                          ragged_offsets(ev_len)[:-1]))
+        state = self._meth_prepare_dispatch(reads, parts)
         self.stage_time["hmm"] += time.time() - t0
         return {} if state is None else self._meth_finish([state])
 
-    def _meth_prepare_dispatch(self, reads, ev_pool, ev_off):
+    def _meth_prepare_dispatch(self, reads, parts):
         """Collect CpG groups (native, threaded), then dispatch the forward
         kernel, which builds every window's inputs from 16 bytes of
-        metadata (K6 fused into K2), against ``ev_pool`` (reads' events at
-        ``ev_off``).  Returns the state _meth_finish consumes, or None when
-        there is nothing to score."""
+        metadata (K6 fused into K2).  ``parts``: [(slot, device, indices
+        into reads, event pool on the device, those reads' offsets in
+        it)]; one part is one launch, several are the slots of a sharded
+        dispatch (``mesh.on_slots``), each scoring its reads' windows with
+        its own metadata, packed reference and read table.
+        Returns the state _meth_finish consumes, or None when there is
+        nothing to score."""
         k = self.cpg_model.k
         t_col = time.time()
         refs = [self._fetch_ref_segment(r).encode() for r in reads]
@@ -1043,8 +1088,6 @@ class Pipeline:
         it_meth = np.tile(np.array([0, 1], np.int64), total_g)
         n_items = 2 * total_g
 
-        ref_off = ragged_offsets(np.array([len(d) for d in ref_disamb],
-                                          np.int64))[:-1]
         lp_stay, lp_step = transition_params(
             np.array([r.events_per_base for r in reads], np.float32))
         read_tab = np.zeros((len(reads), 8), np.float32)
@@ -1057,33 +1100,55 @@ class Pipeline:
 
         sizes = np.abs(it_e2 - it_e1) + 1
         wlen = it_sub_end - it_sub_start + 1
-        gstart = ref_off[it_read] + it_sub_start
-        ev_start = np.asarray(ev_off, np.int64)[it_read] + it_e1
-        if (len(reads) > 0xFFFF or wlen.max() > 0x7FFF
-                or max(gstart.max(), ev_start.max()) >= 2**31):
-            raise ValueError("HMM batch exceeds the 16-byte window "
-                             "metadata's ranges; use a smaller batch (-K)")
-        # narrow windows first (two to a warp), each class by event count,
-        # longest first, which keeps the warps of a block alike
-        n_km = wlen - (k - 1)
-        order, n_narrow = hmm_cuda.order_windows(n_km, sizes)
-        meta = pack_meta(gstart[order], ev_start[order],
-                         (np.where(it_e2 >= it_e1, 1, -1) * sizes)[order],
-                         wlen[order], it_meth[order], it_read[order])
-        packed_ref = pack_codes(seq_codes(b"".join(ref_disamb) + b"\0" * 8))
-        dev = self.device
+        signed = np.where(it_e2 >= it_e1, 1, -1) * sizes
+
+        def launch(dev, items, it_rd, ridx, ev_pool, ev_off):
+            """Score ``items`` (their reads: ``reads[ridx]``, item i's at
+            ``ridx[it_rd[i]]``) on ``dev``; returns ((items in launch
+            order, the scores' HostCopy), bytes uploaded)."""
+            dis = [ref_disamb[i] for i in ridx]
+            ref_off = ragged_offsets(np.array([len(d) for d in dis],
+                                              np.int64))[:-1]
+            wl, sz = wlen[items], sizes[items]
+            gstart = ref_off[it_rd] + it_sub_start[items]
+            ev_start = np.asarray(ev_off, np.int64)[it_rd] + it_e1[items]
+            if (len(ridx) > 0xFFFF or wl.max() > 0x7FFF
+                    or max(gstart.max(), ev_start.max()) >= 2**31):
+                raise ValueError("HMM batch exceeds the 16-byte window "
+                                 "metadata's ranges; use a smaller batch "
+                                 "(-K)")
+            # narrow windows first (two to a warp), each class by event
+            # count, longest first, which keeps the warps of a block alike
+            n_km = wl - (k - 1)
+            order, n_narrow = hmm_cuda.order_windows(n_km, sz)
+            meta = pack_meta(gstart[order], ev_start[order],
+                             signed[items][order], wl[order],
+                             it_meth[items][order], it_rd[order])
+            packed_ref = pack_codes(seq_codes(b"".join(dis) + b"\0" * 8))
+            tab = np.ascontiguousarray(read_tab[ridx])
+            # the kernel builds each window's ranks and scalars from meta,
+            # the packed reference and the read table (K6 fused into K2)
+            scores = hmm_cuda.hmm_forward_meta(
+                h2d(meta, dev), h2d(packed_ref, dev), h2d(tab, dev),
+                ev_pool, *self._cpg_dev_tables(dev), k, n_narrow=n_narrow,
+                max_km=int(n_km.max()))
+            return ((items[order], HostCopy([scores])),
+                    meta.nbytes + packed_ref.nbytes + tab.nbytes)
+
+        slots = []
+        for slot, dev, ridx, ev_pool, ev_off in parts:
+            loc = np.full(len(reads), -1, np.int64)
+            loc[ridx] = np.arange(len(ridx))
+            items = np.nonzero(loc[it_read] >= 0)[0]
+            slots.append((slot, dev, items, loc[it_read[items]], ridx,
+                          ev_pool, ev_off))
         t_disp = time.time()
-        # the kernel builds each window's ranks and scalars from meta, the
-        # packed reference and the read table (K6 fused into K2)
-        scores = hmm_cuda.hmm_forward_meta(
-            h2d(meta, dev), h2d(packed_ref, dev), h2d(read_tab, dev),
-            ev_pool, *self._cpg_dev_tables(), k, n_narrow=n_narrow,
-            max_km=int(n_km.max()))
+        pending = [res for _slot, _items, res in mesh.on_slots(
+            "hmm", slots, launch, mesh.table_bytes(self.cpg_model))]
         self.stage_detail["hmm.dispatch_enqueue"] += time.time() - t_disp
         self.stage_detail["hmm.n_dispatch"] += 1
         self.stage_detail["hmm.n_windows"] += n_items
-        return (reads, group_arrays, ref_disamb, n_items,
-                [(order, HostCopy([scores]))])
+        return reads, group_arrays, ref_disamb, n_items, pending
 
     def _meth_finish(self, states):
         """Wait for the scores and keep them per read as MethCalls in
@@ -1197,9 +1262,6 @@ class Pipeline:
                 "call-methylation: pass --meth-model <file> (9-mer ACGMT "
                 "table; convert with scripts/convert_models.py)")
         opt = self.opt
-        if opt.dist_markers:
-            raise NotImplementedError("--dist is not ported to "
-                                      "f5c_tpu_torch yet (ROADMAP.md)")
         if opt.meth_out_version == 1:
             out.write("chromosome\tstart\tend\tread_name\t"
                       "log_lik_ratio\tlog_lik_methylated\t"
@@ -1243,6 +1305,8 @@ class Pipeline:
                     if not site_map:
                         continue
                     contig = self.bam.references[r.tid]
+                    if opt.dist_markers:
+                        writer.write(f"{MARKER}{r.read_idx}\n")
                     writer.write_lazy(functools.partial(
                         _render_meth_rows, contig, r.qname, r.is_reverse,
                         site_map, opt.meth_out_version,
@@ -1306,6 +1370,21 @@ class Pipeline:
                     "failed. Check --pore / --rna against the dataset "
                     "chemistry (meth_main.c:821-837).\n")
         return 0
+
+
+def _hmm_parts(todo, ok, launch):
+    """The HMM dispatch of an ABEA launch's reads ``ok`` (a subset of
+    ``todo``, in its order), dealt as their ABEA was: per part of
+    ``launch``, (slot, device, indices into ok of its reads, its event
+    slab, those reads' offsets in the slab)."""
+    pos = {id(r): i for i, r in enumerate(ok)}
+    parts = []
+    for slot, idx, (slab_dev, ev_off, *_rest) in launch:
+        sel = [j for j, i in enumerate(idx) if id(todo[i]) in pos]
+        parts.append((slot, slab_dev.device,
+                      np.array([pos[id(todo[idx[j]])] for j in sel],
+                               np.int64), slab_dev, ev_off[sel]))
+    return parts
 
 
 class _LazySites:

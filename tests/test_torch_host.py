@@ -297,9 +297,10 @@ def test_eventalign_emitters(rc):
 
 
 def test_port_stands_alone(tmp_path):
-    """A fresh interpreter imports every module of the port, runs
-    call-methylation, eventalign and resquiggle on the golden set on the
-    CPU, and has loaded no module of f5c_tpu and no jax."""
+    """A fresh interpreter imports every module of the port (the
+    multi-device and multi-process layer of ``parallel/`` among them),
+    runs call-methylation, eventalign and resquiggle on the golden set on
+    the CPU, and has loaded no module of f5c_tpu and no jax."""
     code = f"""
 import importlib, os, pkgutil, sys
 import f5c_tpu_torch
@@ -307,6 +308,8 @@ names = [m.name for m in pkgutil.walk_packages(f5c_tpu_torch.__path__,
                                                "f5c_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {{"f5c_tpu_torch.parallel.distributed", "f5c_tpu_torch.parallel.mesh",
+        "f5c_tpu_torch.parallel.mesh_check"}} <= set(names), names
 from f5c_tpu_torch import datasets
 from f5c_tpu_torch.cli import main
 d = datasets.copy_dataset(datasets.dataset({GOLDEN!r},

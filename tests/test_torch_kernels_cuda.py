@@ -377,3 +377,94 @@ def test_viterbi_fast_division_is_div_rn(cuda):
     fast, ref = viterbi_cuda.division_probe(a, torch.from_numpy(gs).to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(fast.view(torch.int32), ref.view(torch.int32))
+
+
+def test_wrappers_launch_on_their_tensors_device(cuda):
+    """Every wrapper (probes included) and HostCopy with another device
+    current than its tensors' (on one card, ``torch.cuda.device(0)``
+    around tensors on cuda:0, which still runs the guard): the kernels'
+    results are their plain versions', as the tests above hold them."""
+    from f5c_tpu_torch import datasets
+    from f5c_tpu_torch.backend import HostCopy
+    from f5c_tpu_torch.io.slow5 import Slow5File
+    from f5c_tpu_torch.ops import (abea_ultra, abea_ultra_cuda, events_cuda,
+                                   events_device)
+
+    dev0 = torch.device("cuda", 0)
+    other = 1 if torch.cuda.device_count() > 1 else 0
+    rng = np.random.default_rng(41)
+    nuc, cpg = (builtin_model("dna_r9_nucleotide"),
+                builtin_model("dna_r9_cpg"))
+    seqs, events = synthetic.abea_reads(rng, [20, 300, 1500], nuc)
+    x = _on(synthetic.abea_inputs(seqs, events, nuc), dev0)
+    fill_args = [x[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool",
+                                "rk_off", "rk_len", "level_mean",
+                                "level_stdv", "level_log_stdv", "params",
+                                "band_off")]
+    m = synthetic.hmm_meta_windows(rng, [1, 17, 40, 300, 2500], cpg)
+    t = _on(m, dev0)
+    hmm_args = [t[k] for k in HMM_META] + [m["k"]]
+    f = Slow5File(datasets.GOLDEN_SIGNALS_ZLIB)
+    pas = [f.get(r).to_pa() for r in f.read_ids()[:3]]
+    off = np.zeros(len(pas) + 1, np.int64)
+    np.cumsum([p.shape[0] for p in pas], out=off[1:])
+    slab = torch.from_numpy(np.concatenate(pas)).to(dev0)
+    so = torch.from_numpy(off).to(dev0)
+    v = synthetic.viterbi_round(rng, nuc, 50)
+    vt = _on({k: val for k, val in v.items() if k != "chunks"}, dev0)
+    tables = [torch.as_tensor(np.asarray(a, np.float32), device=dev0)
+              for a in (nuc.level_mean, nuc.level_stdv, nuc.level_log_stdv)]
+    mp = hmm.viterbi_max_path(v["spec_i32"][:, 2], v["spec_i32"][:, 5])
+    vit_args = (vt["spec_i32"], vt["spec_f32"], hmm.viterbi_consts(),
+                vt["rank_pool"], vt["ev_pool"], *tables, mp)
+    nb_max = int(np.diff(x["band_off"].cpu().numpy()).max())
+    s0 = abea_ultra.initial_state(x["params"])
+    pk = next(iter(synthetic.peak_probe_batches(rng, pas)))
+    pk_args = (pk["t1"], pk["t2"], pk["sig_off"])
+    with torch.cuda.device(other):
+        assert torch.cuda.current_device() == other
+        fill = abea_cuda.abea_fill(*fill_args, x["n_bands"])
+        walk_args = (fill[0], fill[1], x["band_off"], fill[2], x["rk_len"],
+                     x["byte_off"])
+        walk = abea_cuda.abea_walk(*walk_args, x["n_bytes"])
+        win = abea_ultra_cuda.abea_fill_window(*fill_args, s0, 2, 97, 1,
+                                               True)
+        windowed = abea_ultra_cuda.abea_align_windowed(
+            *fill_args, x["byte_off"], x["n_bytes"], nb_max, 300)
+        scores = hmm_cuda.hmm_forward_meta(*hmm_args, n_narrow=m["n_narrow"],
+                                           max_km=m["max_km"])
+        ranks = hmm_cuda.hmm_window_ranks(t["meta"], t["packed_ref"],
+                                          t["read_tab"], m["k"], m["max_km"])
+        ev = events_cuda.detect_events(slab, so, False)
+        peaks = events_cuda.peaks_from_tracks(
+            *(a.to(dev0) for a in pk_args), pk["rna"])
+        vit = viterbi_cuda.viterbi_rounds(*vit_args)
+        a = torch.linspace(-50, 50, 4096, device=dev0)
+        fast, ref = viterbi_cuda.division_probe(a, torch.full_like(a, 3.0))
+        host = HostCopy([walk[0], scores]).wait()
+    torch.cuda.synchronize(dev0)
+    for g, w in zip(fill, abea.abea_fill_plain(*fill_args)):
+        assert g.device == dev0 and torch.equal(g, w)
+    for g, w in zip(walk, abea.abea_walk_plain(*walk_args)):
+        assert torch.equal(g, w)
+    for g, w in zip(win, abea_ultra.fill_window_plain(*fill_args, s0, 2, 97,
+                                                       1, True)):
+        assert torch.equal(_bits(g), _bits(w))
+    for g, w in zip(windowed, abea_cuda.abea_align(
+            *fill_args, x["byte_off"], x["n_bands"], x["n_bytes"])):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(scores, hmm_meta.hmm_forward_meta_plain(
+        *hmm_args), rtol=hmm.RTOL, atol=hmm.ATOL)
+    assert torch.equal(ranks, hmm_meta.build_inputs(
+        t["meta"], t["packed_ref"], t["read_tab"], k=m["k"],
+        kw=m["max_km"])[0])
+    for g, w in zip(ev, events_device.detect_events_plain(slab, so, False)):
+        assert torch.equal(g, w)
+    want_peaks = events_cuda.peaks_from_tracks(*pk_args, pk["rna"])
+    assert peaks[0] == want_peaks[0]
+    assert np.array_equal(peaks[1], want_peaks[1])
+    for g, w in zip(vit, hmm.viterbi_rounds_plain(*vit_args)):
+        assert torch.equal(g, w)
+    assert torch.equal(fast.view(torch.int32), ref.view(torch.int32))
+    assert np.array_equal(host[0], walk[0].cpu().numpy())
+    assert np.array_equal(host[1], scores.cpu().numpy())
