@@ -9,7 +9,11 @@ Phases (each prints one line; any failure raises and exits nonzero):
 1. probe: the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
 2. build: the kernels of f5c_tpu_torch/csrc with nvcc for sm_90a;
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
-   the card -- the ABEA kernels (unchunked and windowed) bit-identical,
+   the card -- the ABEA kernels (unchunked and windowed, which take the
+   sequences 2-bit packed and rank their k-mers themselves: K11 fused)
+   bit-identical, and at every fill launch the fills' k-mer ranks (their
+   probe) bit for bit ranks_from_packed's, also at k = 5, 6 and 9 on
+   reads at every offset mod 4 of the packed buffer,
    the fused HMM forward (window metadata in, scores out) within
    f5c_tpu_torch/ops/hmm.py's tolerance and its in-kernel k-mer ranks
    (the rank probe) bit-identical to ops/hmm_meta.build_inputs -- on the
@@ -96,15 +100,19 @@ Phases (each prints one line; any failure raises and exits nonzero):
     ``--dist`` processes on cuda:0 (a gloo group on the host) running
     call-methylation (each rank with its own --profile-dir, whose trace
     names the fill, walk and HMM kernels) and eventalign --summary on the
-    golden set: the merged files byte for byte a single-process run's,
-    the parts removed.  One card: this measures the layer's overhead,
-    not scaling.
+    golden set (eventalign launched under srun's environment, with no
+    --dist-* option): the merged files byte for byte a single-process
+    run's, the parts removed.  One card: this measures the layer's
+    overhead, not scaling.
 
 It prints a JSON line of the kernels (launches on the main path, max
 abs error against the plain version, ms (for K8 and K9 the kernels
 alone, with the whole wrapper call as wrapper_ms; for K9 also its peak
 kernel alone, peaks_ms and its bound, and the rounds of its peak scan on
-the main path), plain ms, and the roofline bound
+the main path, and as library_ms torch.cumsum's prefix sums of its
+samples; for K11, fused into K1 and K3, its probe against the torch ops
+that ranked before, its launches K1's and K3's), plain ms, and the
+roofline bound
 of the timed launch: bytes each input read once and each output written
 once over 3.35 TB/s, f32 operations over 67 TFLOP/s or f64 operations
 over 34 TFLOP/s, whichever is largest), the card's name and power limit,
@@ -172,6 +180,9 @@ EV_F64_PER_EVENT, EV_F32_PER_EVENT = 2, 5
 VIT_CELL_OPS = 24
 KERNELS = {
     "abea_fill": ("f5c_tpu_torch/csrc/abea.cu", "f5c_tpu/ops/abea_ring.py:69"),
+    # K11, fused into K1 and K3; timed and held through its probe
+    "abea_ranks": ("f5c_tpu_torch/csrc/abea_band.cuh",
+                   "f5c_tpu/ops/seq_ranks.py:72"),
     "abea_walk": ("f5c_tpu_torch/csrc/abea.cu",
                   "f5c_tpu/ops/abea_ring.py:377"),
     "hmm_forward": ("f5c_tpu_torch/csrc/hmm.cu",
@@ -190,6 +201,14 @@ WRAPPERS = {"hmm_forward": "hmm_forward_meta", "events": "detect_events",
             "viterbi": "viterbi_rounds"}
 HMM_META = ("meta", "packed_ref", "read_tab", "ev_pool", "level_mean",
             "level_stdv", "level_log_stdv")
+# the fill wrappers' arguments of a synthetic.abea_inputs batch (the
+# sequences 2-bit packed), and its plain fills' (ranked on the host)
+FILL_ARGS = ("ev_pool", "ev_off", "ev_len", "seq_packed", "seq_off",
+             "rk_len", "k", "level_mean", "level_stdv", "level_log_stdv",
+             "params", "band_off")
+PLAIN_FILL_ARGS = ("ev_pool", "ev_off", "ev_len", "rk_pool", "rk_off",
+                   "rk_len", "level_mean", "level_stdv", "level_log_stdv",
+                   "params", "band_off")
 
 
 def say(phase: str, **fields) -> None:
@@ -374,15 +393,20 @@ def compare_launches(spy_calls, torch):
     """Each recorded kernel call re-run through the kernel and the plain
     version on the card.  Returns {name: max_abs_err} (0 = bit-identical;
     ABEA must be, the HMM must be within tolerance, and its rank probe,
-    "hmm_ranks", bit-identical)."""
+    "hmm_ranks", bit-identical; so must the fills' k-mer ranks, through
+    their probe, "abea_ranks", at every fill launch)."""
     from f5c_tpu_torch.ops import (abea, abea_cuda, abea_ultra,
                                    abea_ultra_cuda, events_cuda,
                                    events_device, hmm, viterbi_cuda)
 
     err = {}
+    for name in ("abea_fill", "abea_fill_window"):
+        for args, _ in spy_calls.get(name, ()):
+            err["abea_ranks"] = max(err.get("abea_ranks", 0),
+                                    hold_abea_ranks(*args[3:7]))
     for args, kw in spy_calls.get("abea_fill", ()):
         got = abea_cuda.abea_fill(*args, **kw)
-        want = abea.abea_fill_plain(*args[:11])
+        want = abea.abea_fill_packed_plain(*args[:12])
         err["abea_fill"] = max(err.get("abea_fill", 0), _int_err(got, want))
     for args, kw in spy_calls.get("abea_walk", ()):
         got = abea_cuda.abea_walk(*args, **kw)
@@ -394,7 +418,7 @@ def compare_launches(spy_calls, torch):
         err["hmm_ranks"] = max(err.get("hmm_ranks", 0), e_ranks)
     for args, kw in spy_calls.get("abea_fill_window", ()):
         got = abea_ultra_cuda.abea_fill_window(*args, **kw)
-        want = abea_ultra.fill_window_plain(*args, **kw)
+        want = abea_ultra.fill_window_packed_plain(*args, **kw)
         err["abea_fill_window"] = max(err.get("abea_fill_window", 0),
                                       _int_err(got, want))
     for args, kw in spy_calls.get("abea_walk_window", ()):
@@ -411,11 +435,51 @@ def compare_launches(spy_calls, torch):
         want = hmm.viterbi_rounds_plain(*args[:9])
         err["viterbi"] = max(err.get("viterbi", 0), _int_err(got, want))
     for name in ("abea_fill", "abea_walk", "abea_fill_window",
-                 "abea_walk_window", "hmm_ranks", "events", "viterbi"):
+                 "abea_walk_window", "abea_ranks", "hmm_ranks", "events",
+                 "viterbi"):
         if err.get(name, 0) != 0:
             raise AssertionError(f"{name}: kernel differs from plain "
                                  f"(max abs err {err[name]})")
     return err
+
+
+def hold_abea_ranks(seq_packed, seq_off, rk_len, k) -> int:
+    """The fills' k-mer ranks (the probe abea_cuda.abea_ranks) against
+    their plain version (seq_ranks.ranks_at_kmers: ranks_from_packed at
+    every read's k-mers), on the card; returns the largest difference."""
+    from f5c_tpu_torch.ops import abea_cuda
+    from f5c_tpu_torch.ops.seq_ranks import ranks_at_kmers
+
+    return _int_err((abea_cuda.abea_ranks(seq_packed, seq_off, rk_len, k),),
+                    (ranks_at_kmers(seq_packed, seq_off, rk_len, k),))
+
+
+def abea_rank_probe_cases(torch, dev) -> dict:
+    """The fills' k-mer ranks (the probe) held bit for bit to their plain
+    version at k = 5, 6 and 9, on synthetic.abea_rank_cases (reads at
+    every offset mod 4 of the packed buffer, Ns, a read of one k-mer) and
+    on 2,000 random reads of up to 3,000 bases.  Returns {k: k-mers
+    checked}."""
+    import numpy as np
+
+    from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.ops.seq_ranks import pack_seqs
+
+    checked = {}
+    for k in (5, 6, 9):
+        rng = np.random.default_rng(2030 + k)
+        checked[k] = 0
+        for seqs in (synthetic.abea_rank_cases(rng, k),
+                     [synthetic.random_seq(rng, int(n))
+                      for n in rng.integers(k, 3000, 2000)]):
+            packed, off = pack_seqs(seqs)
+            rk_len = np.array([len(q) - k + 1 for q in seqs], np.int32)
+            if hold_abea_ranks(*(torch.as_tensor(a, device=dev)
+                                 for a in (packed, off, rk_len)), k):
+                raise AssertionError(f"abea rank probe differs from "
+                                     f"ranks_from_packed at k = {k}")
+            checked[k] += int(rk_len.sum())
+    return checked
 
 
 def hold_native(spy_calls, model) -> dict:
@@ -577,13 +641,10 @@ def synthetic_calls(torch, dev):
     x = synthetic.abea_inputs(seqs, events, nuc)
     t = {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
          else v for k, v in x.items()}
-    fill_args = tuple(t[k] for k in (
-        "ev_pool", "ev_off", "ev_len", "rk_pool", "rk_off", "rk_len",
-        "level_mean", "level_stdv", "level_log_stdv", "params",
-        "band_off"))
+    fill_args = tuple(t[k] for k in FILL_ARGS)
     from f5c_tpu_torch.ops import abea
 
-    trace, llk, start_e = abea.abea_fill_plain(*fill_args)
+    trace, llk, start_e = abea.abea_fill_packed_plain(*fill_args)
     walk_args = (trace, llk, t["band_off"], start_e, t["rk_len"],
                  t["byte_off"])
     hmm_calls = []
@@ -641,10 +702,8 @@ def synthetic_window_calls(torch, dev):
     x = synthetic.abea_inputs(seqs, events, nuc)
     t = {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
          else v for k, v in x.items()}
-    args = tuple(t[k] for k in (
-        "ev_pool", "ev_off", "ev_len", "rk_pool", "rk_off", "rk_len",
-        "level_mean", "level_stdv", "level_log_stdv", "params",
-        "band_off", "byte_off"))
+    args = tuple(t[k] for k in (*FILL_ARGS, "byte_off"))
+    plain_args = tuple(t[k] for k in (*PLAIN_FILL_ARGS, "byte_off"))
     nb_max = int(np.diff(x["band_off"]).max())
     if abea_ultra.n_windows(nb_max, SYNTH_WIN) < 4:
         raise AssertionError("the synthetic read spans < 4 windows")
@@ -654,7 +713,7 @@ def synthetic_window_calls(torch, dev):
             *args, x["n_bytes"], nb_max, SYNTH_WIN)
     finally:
         spy.close()
-    plain = abea_ultra.align_windowed(*args, x["n_bytes"], nb_max,
+    plain = abea_ultra.align_windowed(*plain_args, x["n_bytes"], nb_max,
                                       SYNTH_WIN)
     unchunked = abea_cuda.abea_align(*args, x["n_bands"], x["n_bytes"])
     for name, want in (("plain", plain), ("unchunked", unchunked)):
@@ -714,12 +773,12 @@ def hold_windows(torch, calls, win: int, picks: dict):
     from f5c_tpu_torch.ops import abea_ultra, abea_ultra_cuda
 
     fwd = calls["abea_fill_window"][0][0]
-    if fwd[15] or fwd[12] != 2:
+    if fwd[16] or fwd[13] != 2:
         raise AssertionError("the first window launch is not the forward")
-    n_win = fwd[14]
-    refill = {a[12]: a for a, _ in calls["abea_fill_window"][1:]}
+    n_win = fwd[15]
+    refill = {a[13]: a for a, _ in calls["abea_fill_window"][1:]}
     walks = {a[2]: a for a, _ in calls["abea_walk_window"]}
-    nb = np.diff(fwd[10].cpu().numpy())
+    nb = np.diff(fwd[11].cpu().numpy())
     if (min(picks.values()) < 0 or len(refill) != n_win
             or len(walks) != n_win):
         raise AssertionError("the window launches are not those of the "
@@ -734,7 +793,7 @@ def hold_windows(torch, calls, win: int, picks: dict):
         base = 2 + w * win
         fa, wa = refill[base], walks[base]
         want_f, plain_f = run_once(
-            torch, lambda: abea_ultra.fill_window_plain(*fa))
+            torch, lambda: abea_ultra.fill_window_packed_plain(*fa))
         want_w, plain_w = run_once(
             torch, lambda: abea_ultra.walk_window_plain(*wa))
         got_f = abea_ultra_cuda.abea_fill_window(*fa)
@@ -789,10 +848,7 @@ def mixed_long_short(torch, dev):
     x = synthetic.abea_inputs(seqs, events, nuc)
     t = {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
          else v for k, v in x.items()}
-    args = tuple(t[k] for k in (
-        "ev_pool", "ev_off", "ev_len", "rk_pool", "rk_off", "rk_len",
-        "level_mean", "level_stdv", "level_log_stdv", "params",
-        "band_off"))
+    args = tuple(t[k] for k in FILL_ARGS)
     nb = np.diff(x["band_off"])
     chain = int(nb.max())
     if chain // abea.FILL_TILE < 50 or chain // abea.WALK_TILE < 50:
@@ -869,7 +925,7 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
             finally:
                 spy.close()
             if mode == "windowed":
-                nb = (spy.calls["abea_fill_window"][0][0][10].diff()
+                nb = (spy.calls["abea_fill_window"][0][0][11].diff()
                       .min().item())
                 err, timings, info, _ = hold_windows(
                     torch, spy.calls, win,
@@ -981,6 +1037,7 @@ def hold_ultra_events(torch, calls) -> dict:
     peak_scan = time_peak_scan(torch, _build, args, 3)
     off = args[1].cpu().numpy()
     return dict(events_ms=kern_ms, events_wrapper_ms=ms,
+                events_cumsum_ms=cumsum_ms(torch, args[0], 3),
                 **{f"events_{k}": v for k, v in peak_scan.items()},
                 events_plain_ms=plain_ms,
                 events_bound_ms=bound_of("events", args, kw, got)[0],
@@ -988,6 +1045,16 @@ def hold_ultra_events(torch, calls) -> dict:
                 events_longest_read=int((off[1:] - off[:-1]).max()),
                 events_events=int(got[1].shape[0]),
                 events_vs_native_reads=held["events"])
+
+
+def cumsum_ms(torch, samples, reps: int) -> float:
+    """torch.cumsum's ms over a K9 launch's samples in f64 and their
+    squares (one call over both, as rows): the library's prefix sums, a
+    reference for K9's sums kernel only, and not bit for bit the host's
+    order (K9's sums are, by their sample-order redo)."""
+    x = samples.double()
+    rows = torch.stack([x, x * x])
+    return time_ms(torch, lambda: torch.cumsum(rows, dim=1), reps)
 
 
 def hold_peak_probe(torch, dev) -> dict:
@@ -1196,7 +1263,7 @@ def k9_full_wave(tmp, torch, card, kernel_mods, nuc_path, meth_opts,
     kernels = {
         "abea_fill": ((fill_a, fill_kw),
                       lambda: abea_cuda.abea_fill(*fill_a, **fill_kw),
-                      lambda: abea.abea_fill_plain(*fill_a[:11])),
+                      lambda: abea.abea_fill_packed_plain(*fill_a[:12])),
         "abea_walk": ((walk_a, walk_kw),
                       lambda: abea_cuda.abea_walk(*walk_a, **walk_kw),
                       lambda: abea.abea_walk_plain(*walk_a[:6])),
@@ -1222,13 +1289,13 @@ def k9_full_wave(tmp, torch, card, kernel_mods, nuc_path, meth_opts,
                            bound_by=by)
     # the rates phase 5 gives at k = 6: per band of the longest read, per
     # step of the longest walk, per warp-step of an SM sub-partition
-    chain = int((fill_a[10][1:] - fill_a[10][:-1]).max())
+    chain = int((fill_a[11][1:] - fill_a[11][:-1]).max())
     steps = int(abea_cuda.abea_walk(*walk_a, **walk_kw)[1].max())
     hmm_work = hmm_shape(hmm_a, hmm_kw)
     smsp = 4 * torch.cuda.get_device_properties(0).multi_processor_count
     vit_spec = vit_kw.get("host_spec")
     say("pores_k9_wave", card=card.replace(" ", "_"), reads=len(lengths),
-        launch_reads=int(fill_a[2].shape[0]), bands=fill_a[11],
+        launch_reads=int(fill_a[2].shape[0]), bands=fill_a[12],
         chain_bands=chain, walk_steps=steps,
         **{f"hmm_{k}": v for k, v in hmm_work.items()},
         hmm_max_km=hmm_kw["max_km"], viterbi_chunks=int(vit_a[0].shape[0]),
@@ -1330,19 +1397,42 @@ PROFILED_KERNELS = ("abea_fill_kernel", "abea_walk_kernel",
                     "hmm_forward_meta_kernel")
 
 
+def free_port(lo: int = 0) -> int:
+    """A port of 127.0.0.1 that is free now: any (``lo`` 0), or one at
+    or above ``lo``."""
+    import random
+
+    while True:
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", random.randint(lo, 65535) if lo else 0))
+            except OSError:
+                continue
+            return s.getsockname()[1]
+
+
 def dist_ranks(tmp, tag: str, argv: list, n: int = 2,
-               profile: bool = False) -> tuple[float, list]:
+               profile: bool = False,
+               slurm: bool = False) -> tuple[float, list]:
     """``n`` processes of ``python -m f5c_tpu_torch.cli *argv --dist`` on
     this host (a gloo group at a free port of 127.0.0.1, retried once on
     a fresh port; with ``profile`` each rank with its own --profile-dir
-    ``tmp/<tag>_prof<rank>``).  Returns (wall seconds, [(exit code,
-    stderr)]); every process has ended."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    ``tmp/<tag>_prof<rank>``): launched with the three --dist-* options,
+    or with ``slurm`` with none, under the environment srun gives a
+    2-task step on this host (its job id maps to the port by the JAX
+    package's rule).  Returns (wall seconds, [(exit code, stderr)]);
+    every process has ended."""
+    from f5c_tpu_torch.parallel import distributed
+
+    launch_vars = (*distributed.ENV_VARS, "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                   distributed.OMPI_URI, *distributed.OMPI_VARS,
+                   *distributed.SLURM_VARS, distributed.PORT_OVERRIDE)
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTHONPATH" and k not in launch_vars}
     env["PYTHONPATH"] = ROOT
+    port0 = 65535 - 2**12 + 1
     for attempt in range(2):
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
+        port = free_port(port0 if slurm else 0)
         procs, errs = [], []
         t0 = time.time()
         for r in range(n):
@@ -1351,12 +1441,20 @@ def dist_ranks(tmp, tag: str, argv: list, n: int = 2,
             if profile:
                 prof = ["--profile-dir", os.path.join(tmp, f"{tag}_prof{r}")]
                 shutil.rmtree(prof[1], ignore_errors=True)
+            launch, rank_env = ["--dist-coordinator", f"127.0.0.1:{port}",
+                                "--dist-nprocs", str(n),
+                                "--dist-rank", str(r)], {}
+            if slurm:
+                launch, rank_env = [], {
+                    "SLURM_JOB_ID": str(4096 + port - port0),
+                    "SLURM_STEP_NODELIST": "127.0.0.1",
+                    "SLURM_NTASKS": str(n), "SLURM_PROCID": str(r),
+                    "SLURM_LOCALID": str(r)}
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "f5c_tpu_torch.cli", *argv, *prof,
-                 "--dist", "--dist-coordinator", f"127.0.0.1:{port}",
-                 "--dist-nprocs", str(n), "--dist-rank", str(r)],
-                cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
-                stderr=errs[-1]))
+                 "--dist", *launch],
+                cwd=ROOT, env={**env, **rank_env},
+                stdout=subprocess.DEVNULL, stderr=errs[-1]))
         try:
             rcs = [p.wait(timeout=300) for p in procs]
         finally:
@@ -1382,10 +1480,11 @@ def parallel_phase(tmp, card, golden, scale) -> None:
     device-engine eventalign re-alignment bit for bit the single-device
     run, K1, K4, K2 and K8 launched in both slots (counted per slot), the
     transfer table printed.  (b) two --dist ranks on cuda:0 (gloo on the
-    host): call-methylation (each rank with its own --profile-dir, whose
-    trace names the fill, walk and HMM kernels) and eventalign --summary
-    on the golden set, the merged files the bytes of a single-process
-    run, the part files removed.  Two slots or ranks on one card measure
+    host): call-methylation with the --dist-* options (each rank with its
+    own --profile-dir, whose trace names the fill, walk and HMM kernels)
+    and eventalign --summary under srun's environment and no option, on
+    the golden set, the merged files the bytes of a single-process run,
+    the part files removed.  Two slots or ranks on one card measure
     the dispatch's overhead, not scaling."""
     import glob
 
@@ -1423,7 +1522,8 @@ def parallel_phase(tmp, card, golden, scale) -> None:
                      *data_argv(golden, f("par_dist.tsv"))], profile=True)
     wall_e, ranks_e = dist_ranks(
         tmp, "par_ea", ["eventalign", "--summary", f("par_dist_ea.sum"),
-                        *data_argv(golden, f("par_dist_ea.tsv"))])
+                        *data_argv(golden, f("par_dist_ea.tsv"))],
+        slurm=True)
     failed = [err[-2000:] for rc, err in ranks_m + ranks_e if rc != 0]
     same = {name: same_bytes((f(f"par_single{x}"), f(f"par_dist{x}")))
             if not failed else False
@@ -1438,6 +1538,7 @@ def parallel_phase(tmp, card, golden, scale) -> None:
         text = read_text(traces[0]) if len(traces) == 1 else ""
         mentions.append({n: text.count(n) for n in PROFILED_KERNELS})
     say("parallel_dist", card=card.replace(" ", "_"), ranks=2,
+        launchers={"meth": "--dist-* options", "eventalign": "SLURM env"},
         exit_codes=[rc for rc, _ in ranks_m + ranks_e],
         byte_identical=same, parts_left=parts_left,
         rank_kernel_mentions=mentions,
@@ -1511,8 +1612,11 @@ def bound_of(name: str, args, kw, out):
     the trace bytes and llk words of the steps taken), and the f32
     operations of the cells computed."""
     if name == "abea_fill":
-        cells = args[11] * 100
-        return roofline(_nbytes(*args[:11], *out), cells * ABEA_CELL_OPS)
+        cells = args[12] * 100
+        return roofline(_nbytes(*args[:12], *out), cells * ABEA_CELL_OPS)
+    if name == "abea_ranks":
+        # the packed bases in (0.25 B a base), a rank out (4 B a base)
+        return roofline(_nbytes(*args[:3], out), 0)
     if name == "abea_walk":
         steps = int(out[1].long().sum())
         return roofline(5 * steps + _nbytes(*args[2:6], *out), 0)
@@ -1520,13 +1624,19 @@ def bound_of(name: str, args, kw, out):
         return roofline(_nbytes(*args[:7], out),
                         hmm_shape(args, kw)["cells"] * HMM_CELL_OPS)
     if name == "abea_fill_window":
-        base, win, n_win = args[12], args[13], args[14]
-        nb = (args[10][1:] - args[10][:-1]).long()
+        base, win, n_win = args[13], args[14], args[15]
+        nb = (args[11][1:] - args[11][:-1]).long()
         bands = int((nb - base).clamp(0, n_win * win).sum())
-        # each band takes one new k-mer rank or event (4 bytes) beyond
-        # the first tile's reach of BW k-mers and events per read
-        inputs = 4 * bands + 8 * 100 * int((nb > base).sum())
-        return roofline(inputs + _nbytes(args[11], *out),
+        # each band takes one new k-mer (0.25 B: its base, packed) or one
+        # new event (4 B) beyond the first tile's reach of BW k-mers and
+        # events per read: the k-mers are the lower-left corner's moves
+        # between the state in and the last state out
+        llk = abea_ultra_state_llk(args[12]), abea_ultra_state_llk(
+            out[0][:, -1])
+        kmers = int((llk[1] - llk[0]).clamp(min=0).sum())
+        inputs = (0.25 * kmers + 4 * (bands - kmers)
+                  + 4.25 * 100 * int((nb > base).sum()))
+        return roofline(inputs + _nbytes(args[12], *out),
                         bands * 100 * ABEA_CELL_OPS)
     if name == "abea_walk_window":
         steps = int((out[0][:, 2] - args[3][:, 2]).long().sum())
@@ -1548,6 +1658,15 @@ def bound_of(name: str, args, kw, out):
         inputs = _nbytes(args[0], args[1]) + 16 * nk.sum() + 4 * ne.sum()
         return roofline(inputs + _nbytes(*out), VIT_CELL_OPS * (nk * ne).sum())
     raise KeyError(name)
+
+
+def abea_ultra_state_llk(states):
+    """Band bi-1's lower-left k-mer of each window state record (an int
+    stored as f32 bits), as int64."""
+    import torch
+    from f5c_tpu_torch.ops.abea_ultra import ST_LLK
+
+    return states[:, ST_LLK].contiguous().view(torch.int32).long()
 
 
 def hmm_shape(args, kw) -> dict:
@@ -1700,6 +1819,7 @@ def main(argv: list[str]) -> int:
     from f5c_tpu_torch.ops import (_build, abea, abea_cuda, abea_ultra_cuda,
                                    events_cuda, events_device, hmm, hmm_cuda,
                                    hmm_meta, viterbi_cuda)
+    from f5c_tpu_torch.ops.seq_ranks import ranks_from_packed
     from f5c_tpu_torch.pipeline import eventalign, runner
 
     # 1. probe
@@ -1766,11 +1886,13 @@ def main(argv: list[str]) -> int:
         held_golden = hold_native(spy.calls, nuc)
         err_synth = compare_launches(synthetic_calls(torch, dev), torch)
         probed = rank_probe_cases(torch, dev)
+        abea_probed = abea_rank_probe_cases(torch, dev)
         k8k9 = synthetic_k8k9(torch, dev)
         k8k9.update(hold_peak_probe(torch, dev))
         torch.cuda.synchronize()
         say("kernel_vs_plain", golden=err_golden, synthetic=err_synth,
-            rank_probe_windows=probed, golden_events_vs_native=held_golden,
+            rank_probe_windows=probed, abea_rank_probe_kmers=abea_probed,
+            golden_events_vs_native=held_golden,
             events_fixed_reads=events_cuda.fixed_reads["events"])
         say("k8k9_vs_plain_and_host", **k8k9)
 
@@ -2004,7 +2126,11 @@ def main(argv: list[str]) -> int:
         vit_a, vit_kw = big_scale
         timed = {
             "abea_fill": (lambda: abea_cuda.abea_fill(*fill_a, **fill_kw),
-                          lambda: abea.abea_fill_plain(*fill_a[:11])),
+                          lambda: abea.abea_fill_packed_plain(*fill_a[:12])),
+            # K11 by its probe, against the torch ops that ranked the
+            # packed sequences before the fill kernels did
+            "abea_ranks": (lambda: abea_cuda.abea_ranks(*fill_a[3:7]),
+                           lambda: ranks_from_packed(fill_a[3], fill_a[6])),
             "abea_walk": (lambda: abea_cuda.abea_walk(*walk_a, **walk_kw),
                           lambda: abea.abea_walk_plain(*walk_a[:6])),
             "hmm_forward": (
@@ -2019,10 +2145,10 @@ def main(argv: list[str]) -> int:
         }
         # the serial chains of the ABEA launch: the longest read's bands
         # (fill) and the longest walk's steps
-        chain = int((fill_a[10][1:] - fill_a[10][:-1]).max())
+        chain = int((fill_a[11][1:] - fill_a[11][:-1]).max())
         steps = int(abea_cuda.abea_walk(*walk_a, **walk_kw)[1].max())
         hmm_work = hmm_shape(hmm_a, hmm_kw)
-        shapes = dict(reads=int(fill_a[2].shape[0]), bands=fill_a[11],
+        shapes = dict(reads=int(fill_a[2].shape[0]), bands=fill_a[12],
                       chain_bands=chain, walk_steps=steps,
                       **{f"hmm_{k}": v for k, v in hmm_work.items()},
                       hmm_max_km=hmm_kw["max_km"])
@@ -2030,8 +2156,12 @@ def main(argv: list[str]) -> int:
                           *bound_of(name, args, kw, kern()))
                    for name, (kern, plain), (args, kw) in zip(
                        timed, timed.values(),
-                       ((fill_a, fill_kw), (walk_a, walk_kw),
-                        (hmm_a, hmm_kw), (ev_a, ev_kw), (vit_a, vit_kw)))}
+                       ((fill_a, fill_kw), (fill_a[3:7], {}),
+                        (walk_a, walk_kw), (hmm_a, hmm_kw), (ev_a, ev_kw),
+                        (vit_a, vit_kw)))}
+        # the library's prefix sums at K9's timed launch, the reference of
+        # its sums kernel
+        events_cumsum = cumsum_ms(torch, ev_a[0], 20)
         wrapper_ms = {}
         for name in ("events", "viterbi"):
             kern_ms = kernel_ms(torch, _build, timed[name][0], 20)
@@ -2110,15 +2240,23 @@ def main(argv: list[str]) -> int:
         for name, (ms, plain_ms, bound_ms, bound_by) in timings.items():
             launches = (ultra_counts if name.endswith("_window")
                         else vit_counts if name == "viterbi"
-                        else counts)[name]
-            # no PyTorch call computes the ABEA fill, its walk, the HMM
-            # forward pass, event detection or the chunk Viterbi:
-            # library_ms is null
+                        else counts)[name] if name != "abea_ranks" else (
+                counts["abea_fill"] + ultra_counts["abea_fill_window"])
+            # no PyTorch call computes the ABEA fill, its walk, the k-mer
+            # ranks, the HMM forward pass, event detection or the chunk
+            # Viterbi: library_ms is null, but for K9 torch.cumsum's
+            # prefix sums
             kernels.append(dict(
                 name=name, route="cuda", source=KERNELS[name][0],
                 replaces=KERNELS[name][1], launches=launches,
                 max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=events_cumsum if name == "events" else None))
+            if name == "events":
+                kernels[-1]["library_call"] = (
+                    "torch.cumsum of the f64 samples and their squares: "
+                    "the prefix sums only, not bit for bit the host's "
+                    "order")
             if name in wrapper_ms:
                 # ms: the kernels alone; wrapper_ms: the whole call
                 kernels[-1]["wrapper_ms"] = wrapper_ms[name]

@@ -28,7 +28,9 @@ only.  ``--profile-dir DIR`` writes a torch.profiler trace of a
 call-methylation or eventalign run to DIR (TensorBoard layout; the card's
 activity, or the host's with ``--device cpu``).  ``--dist -o FILE`` runs
 call-methylation or eventalign as one rank of several processes
-(``parallel/distributed.py``: a gloo group, manual or under torchrun);
+(``parallel/distributed.py``: a gloo group; the launch is found as the
+JAX package finds it, the ``--dist-*`` options first, then Open MPI or
+SLURM, or torchrun);
 each rank writes its read shard to ``FILE.partN`` and rank 0 merges the
 parts into the single-process bytes.  Several visible cards are used
 as a mesh (``parallel/mesh.py``; ``F5C_TPU_MESH=0`` turns it off).
@@ -93,8 +95,10 @@ def _add_common_meth_args(p):
                         "FILE)")
     p.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
                    help="rendezvous address (rank 0 listens) for manual "
-                        "--dist launches; without it, torchrun's env:// "
-                        "variables are read")
+                        "--dist launches; what the --dist-* options leave "
+                        "out is auto-detected under Open MPI and SLURM, "
+                        "and with none given torchrun's env:// variables "
+                        "are read")
     p.add_argument("--dist-rank", type=int, default=None,
                    help="this process's rank for manual --dist launches")
     p.add_argument("--dist-nprocs", type=int, default=None,

@@ -18,8 +18,16 @@
 //   corner moves by at most FILL_TILE k-mers and events, so a tile reaches
 //   k-mers [ll_k, ll_k + T + BW) and events (ll_e - BW, ll_e + T]
 //   (ops/abea.py fill_tile_reach).  The rings hold the current tile's
-//   reach and the next one's; the next tile's ranks and events are loaded
-//   into registers when a tile starts and land while it runs;
+//   reach and the next one's; the next tile's sequence bytes and events
+//   are loaded into registers when a tile starts and land while it runs;
+// - the k-mer ranks are not an input: a read's sequence comes 2-bit
+//   packed (ops/seq_ranks.py pack_seqs: whole 32-bit words), and the
+//   staging ranks each k-mer from its words where it puts the k-mer into
+//   the ring (kmer_rank: K11, f5c_tpu/ops/seq_ranks.py:72
+//   ranks_from_packed, fused).  A read moves 0.25 B a base in place of a
+//   4 B rank.  The next tile's k-mer stays in flight as two words: more
+//   state live across the tile's bands slows them (a k-mer's bytes held
+//   in 5 registers cost K3 11 % a window on the H100; PERF.md);
 // - both candidate placements' neighbours and inputs are read before
 //   Suzuki's rule picks one, so the loads do not wait for the decision;
 // - the backtrace start is kept per thread (the thread that owns the
@@ -63,8 +71,10 @@ constexpr int ST_PREV = 0, ST_PREV2 = PAD, ST_LLK = 2 * PAD,
 
 struct ReadIn {
   const float* ev;       // the read's events
-  const int32_t* rk;     // its k-mer ranks
+  const uint32_t* seq;   // the packed sequences of the batch, as words
+  int64_t seq_off;       // the read's first base in them
   int ne, nk;
+  int kmer;              // the model's k
   float scale, shift, lp_stay, lp_step, lp_skip, lp_trim;
 };
 
@@ -90,15 +100,47 @@ struct Cand {
   int e;
 };
 
+// The 32-bit words of the packed sequences (16 bases a word, the first
+// in the low bits) that hold the k-mer at base `pos`: its first base's
+// word and, where the k-mer runs past it (k <= 16), the next.  The
+// staging loads them a tile ahead (load_kmer) and ranks them where they
+// land (kmer_rank), so that the loads stay behind the tile's bands.
+struct KmerWords {
+  uint32_t lo, hi;
+};
+
+__device__ __forceinline__ KmerWords load_kmer(const uint32_t* seq,
+                                               int64_t pos, int kmer) {
+  const uint32_t* w = seq + (pos >> 4);
+  return KmerWords{w[0], static_cast<int>(pos & 15) + kmer > 16 ? w[1]
+                                                               : 0u};
+}
+
+// K11: the rank of the k-mer at base `pos` from its words, sum_j
+// code[pos+j] << 2(k-1-j) (align.c:36-47; the plain version is
+// ops/seq_ranks.py ranks_from_packed): its bases shifted down to the low
+// bits, their 2-bit codes put in reverse order (the bits reversed, then
+// each pair swapped back), the top 2k bits.  The fill's staging and the
+// rank probe (abea.cu f5c_abea_ranks) both rank through it.
+__device__ __forceinline__ int kmer_rank(KmerWords kw, int64_t pos,
+                                         int kmer) {
+  uint32_t r = __brev(
+      __funnelshift_r(kw.lo, kw.hi, 2 * static_cast<int>(pos & 15)));
+  r = ((r >> 1) & 0x55555555u) | ((r & 0x55555555u) << 1);
+  return static_cast<int>(r >> (32 - 2 * kmer));
+}
+
 __device__ __forceinline__ ReadIn read_in(
     int i, const float* ev_pool, const int64_t* ev_off,
-    const int32_t* ev_len, const int32_t* rk_pool, const int64_t* rk_off,
-    const int32_t* rk_len, const float* params) {
+    const int32_t* ev_len, const uint8_t* seq, const int64_t* seq_off,
+    const int32_t* rk_len, int kmer, const float* params) {
   ReadIn r;
   r.ev = ev_pool + ev_off[i];
-  r.rk = rk_pool + rk_off[i];
+  r.seq = reinterpret_cast<const uint32_t*>(seq);
+  r.seq_off = seq_off[i];
   r.ne = ev_len[i];
   r.nk = rk_len[i];
+  r.kmer = kmer;
   r.scale = params[6 * i + 0];
   r.shift = params[6 * i + 1];
   r.lp_stay = params[6 * i + 2];
@@ -126,7 +168,8 @@ struct Stage {
   int* red_e;
   int k_hi, e_hi;
   // the next tile's loads, in flight in registers
-  int p_k, p_r, p_e;
+  int p_k, p_e;
+  KmerWords p_kw;
   float p_ev;
 
   __device__ __forceinline__ void bind(unsigned char* smem) {
@@ -152,7 +195,11 @@ struct Stage {
     k_hi = ll_k + FILL_TILE + BW;
     e_hi = ll_e + FILL_TILE + 1;
     for (int k = ll_k + o; k < k_hi; k += PAD)
-      if (k >= 0 && k < rd.nk) put_kmer(k, rd.rk[k], rd, m);
+      if (k >= 0 && k < rd.nk) {
+        const int64_t pos = rd.seq_off + k;
+        put_kmer(k, kmer_rank(load_kmer(rd.seq, pos, rd.kmer), pos, rd.kmer),
+                 rd, m);
+      }
     for (int e = ll_e - BW + 1 + o; e < e_hi; e += PAD)
       if (e >= 0 && e < rd.ne) ev[e & RING_MASK] = rd.ev[e];
     p_k = p_e = -1;
@@ -166,18 +213,19 @@ struct Stage {
     const int k = k_hi + o, e = e_hi + o;
     p_k = (k < ll_k + 2 * FILL_TILE + BW && k >= 0 && k < rd.nk) ? k : -1;
     p_e = (e < ll_e + 2 * FILL_TILE + 1 && e >= 0 && e < rd.ne) ? e : -1;
-    if (p_k >= 0) p_r = rd.rk[p_k];
+    if (p_k >= 0) p_kw = load_kmer(rd.seq, rd.seq_off + p_k, rd.kmer);
     if (p_e >= 0) p_ev = rd.ev[p_e];
     k_hi = ll_k + 2 * FILL_TILE + BW > k_hi ? ll_k + 2 * FILL_TILE + BW
                                             : k_hi;
     e_hi = ll_e + 2 * FILL_TILE + 1 > e_hi ? ll_e + 2 * FILL_TILE + 1 : e_hi;
   }
 
-  // At the end of a tile: store the prefetched inputs into the rings (the
-  // slots they take held k-mers and events below the next tile's reach).
-  // Ends with a barrier.
+  // At the end of a tile: rank the prefetched k-mer and store it and the
+  // prefetched event into the rings (the slots they take held k-mers and
+  // events below the next tile's reach).  Ends with a barrier.
   __device__ __forceinline__ void land(const ReadIn& rd, const Model& m) {
-    if (p_k >= 0) put_kmer(p_k, p_r, rd, m);
+    if (p_k >= 0)
+      put_kmer(p_k, kmer_rank(p_kw, rd.seq_off + p_k, rd.kmer), rd, m);
     if (p_e >= 0) ev[p_e & RING_MASK] = p_ev;
     __syncthreads();
   }

@@ -4,7 +4,9 @@
 //
 // abea_fill_window_kernel replaces the TPU kernel
 // f5c_tpu/ops/abea_ultra.py:_fill_kernel_win (launched by fill_window;
-// K3); abea_walk_window_kernel replaces its XLA walk walk_window (K10).
+// K3), with the k-mer ranks of the packed sequences (K11) fused in as in
+// the unchunked fill; abea_walk_window_kernel replaces its XLA walk
+// walk_window (K10).
 // The plain PyTorch versions, the state record and the function that pairs
 // them are f5c_tpu_torch/ops/abea_ultra.py.  Algorithm reference:
 // align.c:180-559.
@@ -56,9 +58,9 @@ using namespace f5c_abea;
 
 __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
     const float* __restrict__ ev_pool, const int64_t* __restrict__ ev_off,
-    const int32_t* __restrict__ ev_len, const int32_t* __restrict__ rk_pool,
-    const int64_t* __restrict__ rk_off, const int32_t* __restrict__ rk_len,
-    const float* __restrict__ level_mean,
+    const int32_t* __restrict__ ev_len, const uint8_t* __restrict__ seq,
+    const int64_t* __restrict__ seq_off, const int32_t* __restrict__ rk_len,
+    int kmer, const float* __restrict__ level_mean,
     const float* __restrict__ level_stdv,
     const float* __restrict__ level_log_stdv, int n_model,
     const float* __restrict__ params, const int64_t* __restrict__ band_off,
@@ -69,8 +71,8 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int i = blockIdx.x;
   const int o = threadIdx.x;
-  const ReadIn rd = read_in(i, ev_pool, ev_off, ev_len, rk_pool, rk_off,
-                            rk_len, params);
+  const ReadIn rd = read_in(i, ev_pool, ev_off, ev_len, seq, seq_off,
+                            rk_len, kmer, params);
   const Model m{level_mean, level_stdv, level_log_stdv, n_model};
   const int nb = static_cast<int>(band_off[i + 1] - band_off[i]);
   const int64_t span = static_cast<int64_t>(n_win) * win;
@@ -149,25 +151,27 @@ extern "C" {
 // (no trace: the forward pass).  `smem_bytes` is the block's dynamic
 // shared memory as the wrapper sizes it (ops/abea.py fill_smem_bytes,
 // walk_smem_bytes); a size other than the kernel's layout is refused.
+// `seq`, `seq_off` and `kmer` as for f5c_abea_fill (abea.cu).
 int f5c_abea_fill_window(
     const void* ev_pool, const void* ev_off, const void* ev_len,
-    const void* rk_pool, const void* rk_off, const void* rk_len,
+    const void* seq, const void* seq_off, const void* rk_len,
     const void* level_mean, const void* level_stdv,
     const void* level_log_stdv, const void* params, const void* band_off,
     const void* state_in, void* state_out, void* trace, void* llk,
-    int n_model, int n_reads, int base, int win, int n_win, int smem_bytes,
-    void* stream) {
+    int kmer, int n_model, int n_reads, int base, int win, int n_win,
+    int smem_bytes, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
-  if (smem_bytes != FILL_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem_bytes != FILL_SMEM || kmer < 1 || kmer > 15)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_reads > 0) {
     abea_fill_window_kernel<<<n_reads, PAD, smem_bytes,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ev_pool),
         static_cast<const int64_t*>(ev_off),
         static_cast<const int32_t*>(ev_len),
-        static_cast<const int32_t*>(rk_pool),
-        static_cast<const int64_t*>(rk_off),
-        static_cast<const int32_t*>(rk_len),
+        static_cast<const uint8_t*>(seq),
+        static_cast<const int64_t*>(seq_off),
+        static_cast<const int32_t*>(rk_len), kmer,
         static_cast<const float*>(level_mean),
         static_cast<const float*>(level_stdv),
         static_cast<const float*>(level_log_stdv), n_model,

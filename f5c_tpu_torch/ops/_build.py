@@ -39,11 +39,12 @@ _i64 = ctypes.c_longlong
 # C entry points: every pointer and the stream as void*, sizes as int
 # (a reference concat's length in codes as a 64-bit int)
 _SIGNATURES = {
-    "f5c_abea_fill": [_vp] * 14 + [_int] * 3 + [_vp],
+    "f5c_abea_fill": [_vp] * 14 + [_int] * 4 + [_vp],
+    "f5c_abea_ranks": [_vp] * 4 + [_int] * 2 + [_vp],
     "f5c_abea_walk": [_vp] * 8 + [_int] * 2 + [_vp],
     "f5c_hmm_forward_meta": [_vp] * 9 + [_i64] + [_int] * 7 + [_vp],
     "f5c_hmm_window_ranks": [_vp] * 4 + [_i64] + [_int] * 3 + [_vp],
-    "f5c_abea_fill_window": [_vp] * 15 + [_int] * 6 + [_vp],
+    "f5c_abea_fill_window": [_vp] * 15 + [_int] * 7 + [_vp],
     "f5c_abea_walk_window": [_vp] * 5 + [_int] * 4 + [_vp],
     "f5c_viterbi_rounds": [_vp] * 12 + [_int] * 4 + [_vp],
     "f5c_viterbi_division_probe": [_vp] * 4 + [_int] + [_vp],

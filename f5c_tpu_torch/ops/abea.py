@@ -11,7 +11,12 @@ a common length):
 
 - events ``ev_pool[ev_off[i] : ev_off[i] + ev_len[i]]`` (f32);
 - k-mer ranks ``rk_pool[rk_off[i] : rk_off[i] + rk_len[i]]`` (i32,
-  ``rk_len`` = n_kmers);
+  ``rk_len`` = n_kmers).  The kernels take the sequences in their place:
+  ``seq_packed`` (u8, 4 bases a byte: ``seq_ranks.pack_seqs``) with read
+  i's first base at ``seq_off[i]`` (int64) and the model's k, and rank
+  each k-mer where they stage it (K11 fused); their plain version ranks
+  the buffer with ``seq_ranks.ranks_from_packed`` and reads those ranks
+  at ``rk_off = seq_off`` (``abea_fill_packed_plain``);
 - ``params[i]`` = (scale, shift, lp_stay, lp_step, lp_skip, lp_trim) f32;
 - bands ``band_off[i] .. band_off[i+1]``, n_bands = n_events + n_kmers + 2.
   ``trace[band_off[i] + bi, o]`` (u8) is the direction of the cell at
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from ..constants import ABEA_EPSILON_SKIP, ABEA_LP_TRIM_P, ALN_BANDWIDTH
+from .seq_ranks import ranks_from_packed
 
 # f5c_tpu/ops/abea.py:40-46
 BW = ALN_BANDWIDTH           # 100 active band offsets
@@ -259,6 +265,18 @@ def abea_fill_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
     keep = torch.arange(trace.shape[1], device=dev)[None, :] < nb[:, None]
     return (trace[keep], llk[keep].to(torch.int32),
             best_e.to(torch.int32))
+
+
+def abea_fill_packed_plain(ev_pool, ev_off, ev_len, seq_packed, seq_off,
+                           rk_len, k: int, level_mean, level_stdv,
+                           level_log_stdv, params, band_off):
+    """The plain version of the fill kernel, which ranks the packed
+    sequences itself: ``ranks_from_packed`` (K11's plain version), then
+    ``abea_fill_plain`` on those ranks at ``seq_off``."""
+    return abea_fill_plain(ev_pool, ev_off, ev_len,
+                           ranks_from_packed(seq_packed, k), seq_off, rk_len,
+                           level_mean, level_stdv, level_log_stdv, params,
+                           band_off)
 
 
 def abea_walk_plain(trace, llk, band_off, start_e, rk_len, byte_off):

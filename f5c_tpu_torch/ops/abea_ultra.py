@@ -34,6 +34,7 @@ import torch
 
 from .abea import (LL_K0, NEG_INF, PAD, FROM_L, FROM_U, START_OFF, _Band,
                    band_offsets, byte_offsets, ragged_offsets)
+from .seq_ranks import ranks_from_packed
 
 ST_LLK, ST_K2, ST_BEST_E, ST_BEST_S = 2 * PAD, 2 * PAD + 1, 2 * PAD + 2, \
     2 * PAD + 3
@@ -125,6 +126,17 @@ def fill_window_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
     return out, tr, lk
 
 
+def fill_window_packed_plain(ev_pool, ev_off, ev_len, seq_packed, seq_off,
+                             rk_len, k: int, *rest):
+    """The plain version of the window fill kernel, which ranks the packed
+    sequences itself: ``ranks_from_packed`` (K11's plain version), then
+    ``fill_window_plain`` on those ranks at ``seq_off``; ``rest`` as
+    ``fill_window_plain`` takes it after ``rk_len``."""
+    return fill_window_plain(ev_pool, ev_off, ev_len,
+                             ranks_from_packed(seq_packed, k), seq_off,
+                             rk_len, *rest)
+
+
 def walk_window_plain(trace, llk, base: int, kst, flat, byte_off):
     """Backtrace walk down one window (trace u8 [B, win, PAD], llk i32
     [B, win] of bands base .. base+win-1) for every read, from its carried
@@ -174,7 +186,9 @@ def align_windowed(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
     trace memory per read.  ``n_bands_max`` is the longest read's band
     count, from the host, so no window waits for the device.  ``fill``
     and ``walk`` are the plain versions or the kernel wrappers
-    (ops/abea_ultra_cuda.py)."""
+    (ops/abea_ultra_cuda.py); ``rk_pool`` and ``rk_off`` go to ``fill``
+    as given (the kernel wrapper's are the packed sequences and their
+    base offsets)."""
     args = (ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len, level_mean,
             level_stdv, level_log_stdv, params, band_off)
     # a window longer than the longest read only wastes trace memory; any

@@ -14,19 +14,23 @@ import torch
 
 from . import _build
 from .abea import PAD, fill_smem_bytes, walk_smem_bytes
-from .abea_ultra import (STATE_WORDS, align_windowed, fill_window_plain,
-                         walk_window_plain)
+from .abea_cuda import check_seqs
+from .abea_ultra import (STATE_WORDS, align_windowed,
+                         fill_window_packed_plain, walk_window_plain)
 
 launches = {"abea_fill_window": 0, "abea_walk_window": 0}
 
 
-def abea_fill_window(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
-                     level_mean, level_stdv, level_log_stdv, params,
+def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
+                     k: int, level_mean, level_stdv, level_log_stdv, params,
                      band_off, state, base: int, win: int, n_win: int,
                      trace: bool):
     """``n_win`` windows of ``win`` bands from band ``base``, from the
-    state records ``state`` [B, STATE_WORDS]; the contract of
-    ``abea_ultra.fill_window_plain``.  Returns (states
+    state records ``state`` [B, STATE_WORDS]; the reads' sequences come
+    2-bit packed as ``abea_cuda.abea_fill`` takes them (``seq_packed`` u8,
+    ``seq_off`` i64 [B], ``rk_len`` i32 [B], ``k``), and the kernel ranks
+    the k-mers itself.  The contract of ``abea_ultra.fill_window_plain``;
+    on the CPU, ``abea_ultra.fill_window_packed_plain``.  Returns (states
     [B, n_win, STATE_WORDS], trace u8 [B, n_win*win, 128] or None,
     llk i32 [B, n_win*win] or None)."""
     dev = ev_pool.device
@@ -35,9 +39,6 @@ def abea_fill_window(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
             ("ev_pool", ev_pool, torch.float32, 1),
             ("ev_off", ev_off, torch.int64, 1),
             ("ev_len", ev_len, torch.int32, 1),
-            ("rk_pool", rk_pool, torch.int32, 1),
-            ("rk_off", rk_off, torch.int64, 1),
-            ("rk_len", rk_len, torch.int32, 1),
             ("level_mean", level_mean, torch.float32, 1),
             ("level_stdv", level_stdv, torch.float32, 1),
             ("level_log_stdv", level_log_stdv, torch.float32, 1),
@@ -45,8 +46,8 @@ def abea_fill_window(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
             ("band_off", band_off, torch.int64, 1),
             ("state", state, torch.float32, 2)):
         _build.check_tensor(name, t, dt, nd, dev)
-    if (ev_off.shape[0] != B or rk_off.shape[0] != B
-            or rk_len.shape[0] != B or band_off.shape[0] != B + 1
+    check_seqs("abea_fill_window", seq_packed, seq_off, rk_len, k, dev, B)
+    if (ev_off.shape[0] != B or band_off.shape[0] != B + 1
             or params.shape != (B, 6) or state.shape != (B, STATE_WORDS)):
         raise ValueError("abea_fill_window: per-read arrays disagree on B")
     if not (level_mean.shape == level_stdv.shape == level_log_stdv.shape):
@@ -55,10 +56,10 @@ def abea_fill_window(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
         raise ValueError(f"abea_fill_window: bad window base={base} "
                          f"win={win} n_win={n_win}")
     if dev.type == "cpu":
-        return fill_window_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off,
-                                 rk_len, level_mean, level_stdv,
-                                 level_log_stdv, params, band_off, state,
-                                 base, win, n_win, trace)
+        return fill_window_packed_plain(
+            ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k,
+            level_mean, level_stdv, level_log_stdv, params, band_off, state,
+            base, win, n_win, trace)
     if dev.type != "cuda":
         raise ValueError(f"abea_fill_window: unsupported device {dev}")
     out = torch.empty((B, n_win, STATE_WORDS), dtype=torch.float32,
@@ -72,13 +73,13 @@ def abea_fill_window(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
     with _build.device_guard(dev):
         err = lib.f5c_abea_fill_window(
             ev_pool.data_ptr(), ev_off.data_ptr(), ev_len.data_ptr(),
-            rk_pool.data_ptr(), rk_off.data_ptr(), rk_len.data_ptr(),
+            seq_packed.data_ptr(), seq_off.data_ptr(), rk_len.data_ptr(),
             level_mean.data_ptr(), level_stdv.data_ptr(),
             level_log_stdv.data_ptr(), params.data_ptr(),
             band_off.data_ptr(), state.data_ptr(), out.data_ptr(),
             tr.data_ptr() if trace else None,
-            lk.data_ptr() if trace else None, level_mean.shape[0], B, base,
-            win, n_win, fill_smem_bytes(), _build.stream_handle(dev))
+            lk.data_ptr() if trace else None, k, level_mean.shape[0], B,
+            base, win, n_win, fill_smem_bytes(), _build.stream_handle(dev))
     _build.check_error(lib, "f5c_abea_fill_window", err)
     launches["abea_fill_window"] += 1
     return out, tr, lk
@@ -119,13 +120,19 @@ def abea_walk_window(trace, llk, base: int, kst, flat, byte_off):
     return kst, flat
 
 
-def abea_align_windowed(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
-                        level_mean, level_stdv, level_log_stdv, params,
-                        band_off, byte_off, n_bytes: int, n_bands_max: int,
-                        win: int):
-    """ABEA by windows through the wrappers above: the contract of
+def abea_align_windowed(ev_pool, ev_off, ev_len, seq_packed, seq_off,
+                        rk_len, k: int, level_mean, level_stdv,
+                        level_log_stdv, params, band_off, byte_off,
+                        n_bytes: int, n_bands_max: int, win: int):
+    """ABEA by windows through the wrappers above (the arguments of
+    ``abea_fill_window`` up to ``band_off``): the contract of
     ``abea_cuda.abea_align`` with O(win) trace memory per read."""
-    return align_windowed(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
-                          level_mean, level_stdv, level_log_stdv, params,
-                          band_off, byte_off, n_bytes, n_bands_max, win,
-                          fill=abea_fill_window, walk=abea_walk_window)
+
+    def fill(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, *rest):
+        return abea_fill_window(ev_pool, ev_off, ev_len, seq_packed,
+                                seq_off, rk_len, k, *rest)
+
+    return align_windowed(ev_pool, ev_off, ev_len, seq_packed, seq_off,
+                          rk_len, level_mean, level_stdv, level_log_stdv,
+                          params, band_off, byte_off, n_bytes, n_bands_max,
+                          win, fill=fill, walk=abea_walk_window)

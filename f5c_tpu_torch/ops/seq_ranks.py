@@ -1,12 +1,15 @@
 """k-mer ranks from a 2-bit packed sequence (K11).
 
 Counterpart of ``f5c_tpu/ops/seq_ranks.py``.  The host packs each
-sequence 4 bases per byte (NumPy, copied below); the device unpacks and
-ranks with k shifted adds: ``rank[p] = sum_j code[p+j] << 2*(k-1-j)``
-(reference rank function align.c:36-47).  Bit-identical to
-``native.kmer_ranks`` for every position ``p < n_kmers`` of each read;
-the last k-1 positions of a read and the padding hold garbage that the
-ABEA fill never reads.
+sequence 4 bases per byte (NumPy, copied below) and uploads the packed
+bytes; the ABEA fill kernels rank each k-mer where they stage it
+(``csrc/abea_band.cuh`` ``kmer_rank``: K11 fused into K1 and K3).  The
+ranks are ``rank[p] = sum_j code[p+j] << 2*(k-1-j)`` (reference rank
+function align.c:36-47), bit-identical to ``native.kmer_ranks`` for every
+position ``p < n_kmers`` of each read; ``ranks_from_packed`` is their
+plain version (the last k-1 positions of a read and the padding hold
+garbage that the ABEA fill never reads), ``ranks_at_kmers`` that of the
+kernels' rank probe.
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ def pack_codes(codes: np.ndarray) -> np.ndarray:
 
 
 def pack_seqs(seqs) -> tuple[np.ndarray, np.ndarray]:
-    """Pack sequences into one 2-bit buffer (f5c_tpu/ops/seq_ranks.py:54).
+    """Pack sequences into one 2-bit buffer (f5c_tpu/ops/seq_ranks.py:54),
+    zero-padded to whole 32-bit words (the ABEA fill kernels read it by
+    words).
 
     Returns (packed u8, int64 base offsets): sequence i's base p is code
     ``unpack(packed)[off[i] + p]``.
@@ -53,7 +58,9 @@ def pack_seqs(seqs) -> tuple[np.ndarray, np.ndarray]:
     codes = np.empty(int(lens.sum()), np.uint8)
     for s, o, ln in zip(seqs, off, lens):
         codes[o:o + ln] = seq_codes(s)
-    return pack_codes(codes), off
+    packed = pack_codes(codes)
+    return np.concatenate([packed, np.zeros(-packed.shape[0] % 4,
+                                            np.uint8)]), off
 
 
 def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
@@ -72,3 +79,23 @@ def ranks_from_packed(packed: torch.Tensor, k: int) -> torch.Tensor:
     for j in range(1, k):
         acc = acc + (torch.roll(codes, -j) << (2 * (k - 1 - j)))
     return acc
+
+
+def kmer_positions(seq_off: torch.Tensor, rk_len: torch.Tensor):
+    """The base positions ``seq_off[i] + p`` (p < rk_len[i]) that start a
+    k-mer of some read, as an int64 tensor, read after read."""
+    n = rk_len.to(torch.int64)
+    starts = torch.repeat_interleave(seq_off - (torch.cumsum(n, 0) - n), n)
+    return starts + torch.arange(int(n.sum()), device=seq_off.device)
+
+
+def ranks_at_kmers(seq_packed: torch.Tensor, seq_off: torch.Tensor,
+                   rk_len: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain version of the rank probe (``abea_cuda.abea_ranks``): i32
+    [4 * len(seq_packed)], ``ranks_from_packed``'s rank at every base that
+    starts a k-mer of a read, 0 elsewhere."""
+    out = torch.zeros(4 * seq_packed.shape[0], dtype=torch.int32,
+                      device=seq_packed.device)
+    pos = kmer_positions(seq_off, rk_len)
+    out[pos] = ranks_from_packed(seq_packed, k)[pos].to(torch.int32)
+    return out

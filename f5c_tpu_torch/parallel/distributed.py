@@ -16,14 +16,26 @@ Counterpart of ``f5c_tpu/parallel/distributed.py``, which rides the
   gives the bytes of the single-process output, and removes them
   (:func:`finalize`).
 
-Launchers: with ``--dist-coordinator HOST:PORT --dist-nprocs N
---dist-rank I`` the group meets at ``tcp://HOST:PORT`` (rank 0 listens
-there); with none of the three it reads the ``env://`` variables that
-``torchrun`` (``python -m torch.distributed.run``) sets: ``MASTER_ADDR``,
-``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, and ``LOCAL_RANK`` /
-``LOCAL_WORLD_SIZE`` where present.  A rank's card is ``LOCAL_RANK``
-(else its rank) modulo the visible cards, so ranks on a one-card host
-share ``cuda:0``.
+Launchers, as ``jax.distributed.initialize`` finds them:
+
+- the options ``--dist-coordinator HOST:PORT``, ``--dist-nprocs N`` and
+  ``--dist-rank I`` always win, each on its own;
+- what they leave missing comes from the first cluster environment
+  present, in JAX's order (``jax/_src/clusters/__init__.py:23-24``): Open
+  MPI (``mpirun``/``mpiexec``), then SLURM (``srun``), with JAX's rules
+  for the coordinator (:func:`ompi_coordinator`, :func:`slurm_coordinator`);
+  the group then meets at ``tcp://HOST:PORT``, where rank 0 listens;
+- with no option given, the ``env://`` variables that ``torchrun``
+  (``python -m torch.distributed.run``) sets come first: ``MASTER_ADDR``,
+  ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE`` (torchrun starts the process
+  itself, also inside an allocation; JAX has no torchrun rule).
+
+Once the group has formed, the ranks gather their host names: a rank's
+local world is the ranks on its host, and its local rank the local id its
+launcher gives (``LOCAL_RANK``, ``OMPI_COMM_WORLD_LOCAL_RANK``,
+``SLURM_LOCALID``: JAX takes the same, ``cluster.py:82-86``), else its
+place among them.  Its cards follow from those (:func:`local_devices`), so
+ranks on a one-card host share ``cuda:0``.
 """
 
 from __future__ import annotations
@@ -31,15 +43,87 @@ from __future__ import annotations
 import datetime
 import heapq
 import os
+import re
+import socket
 
 import torch
 
 MARKER = "#f5c-dist\t"
 TIMEOUT_S = 3600      # the JAX package's barrier timeout
 ENV_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+# the environments of jax/_src/clusters/ompi_cluster.py:20-24 and
+# slurm_cluster.py:18-23 (JAX 0.9.0), and JAX's port override
+# (cluster.py:72-74)
+OMPI_URI = "OMPI_MCA_orte_hnp_uri"
+OMPI_VARS = ("OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK",
+             "OMPI_COMM_WORLD_LOCAL_RANK")
+SLURM_VARS = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+              "SLURM_PROCID", "SLURM_LOCALID")
+PORT_OVERRIDE = "JAX_COORDINATOR_PORT"
 
 # this process's place in the group: rank, world, local_rank, local_world
 _state: dict = {}
+
+
+def ompi_coordinator(env) -> str:
+    """The coordinator under Open MPI, by JAX's rule
+    (``jax/_src/clusters/ompi_cluster.py:36-54``): the launcher's address,
+    the first of ``OMPI_MCA_orte_hnp_uri``'s ``tcp://`` or ``tcp6://``
+    list, at port ``(jobid // 4096) % 4096 + 61440`` (the job id is the
+    URI's part before its first dot), or ``JAX_COORDINATOR_PORT``."""
+    uri = env[OMPI_URI]
+    port = env.get(PORT_OVERRIDE)
+    if not port:
+        job_id = int(uri.split(".", maxsplit=1)[0]) // 2**12
+        port = str(job_id % 2**12 + (65535 - 2**12 + 1))
+    m = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+    if m is None:
+        raise ValueError("--dist: could not parse the coordinator's address "
+                         f"from {OMPI_URI}={uri!r}")
+    return f"{next(g for g in m.groups() if g is not None)}:{port}"
+
+
+def slurm_coordinator(env) -> str:
+    """The coordinator under SLURM, by JAX's rule
+    (``jax/_src/clusters/slurm_cluster.py:36-58``): the first host of
+    ``SLURM_STEP_NODELIST`` (``node001``, ``node001,host2``: up to the
+    first comma; ``node[001-015],host2``, ``node[001,007-015]``: the
+    prefix and the bracket list's first number) at port
+    ``SLURM_JOB_ID % 4096 + 61440``, or ``JAX_COORDINATOR_PORT``."""
+    port = env.get(PORT_OVERRIDE)
+    if not port:
+        port = str(int(env["SLURM_JOB_ID"]) % 2**12 + (65535 - 2**12 + 1))
+    nodes = env["SLURM_STEP_NODELIST"]
+    ind = next((i for i, ch in enumerate(nodes) if ch in ",["), len(nodes))
+    if ind == len(nodes) or nodes[ind] == ",":
+        return f"{nodes[:ind]}:{port}"
+    suffix = nodes[ind + 1:]
+    ind2 = next((i for i, ch in enumerate(suffix) if ch in ",-"), None)
+    return f"{nodes[:ind]}{suffix[:ind2]}:{port}"
+
+
+def cluster_launch(env) -> tuple[str, int, int, int] | None:
+    """(coordinator, world, rank, local rank) of the first cluster
+    environment present in ``env``, in JAX's order: Open MPI (present
+    when ``OMPI_MCA_orte_hnp_uri`` is set), then SLURM (present when all
+    of ``SLURM_VARS`` are); None when neither is."""
+    if OMPI_URI in env:
+        return (ompi_coordinator(env),
+                *(int(env[v]) for v in OMPI_VARS))
+    if all(v in env for v in SLURM_VARS):
+        return (slurm_coordinator(env),
+                *(int(env[v]) for v in SLURM_VARS[2:]))
+    return None
+
+
+def host_place(hosts: list, rank: int,
+               local_id: int | None) -> tuple[int, int]:
+    """(local rank, local world) of ``rank`` from every rank's host name
+    (``hosts``, by rank): the local world counts the ranks on its host;
+    the local rank is ``local_id`` where the launcher gives one, else the
+    rank's place among them."""
+    mine = [r for r, h in enumerate(hosts) if h == hosts[rank]]
+    return (mine.index(rank) if local_id is None else local_id), len(mine)
 
 
 def initialize(coordinator: str | None = None,
@@ -48,35 +132,50 @@ def initialize(coordinator: str | None = None,
                timeout_s: float = TIMEOUT_S) -> tuple[int, int]:
     """Join the gloo process group and make the rank's card current.
 
-    Pass all of ``coordinator`` ("host:port"), ``num_processes`` and
-    ``process_id`` for a manual launch, or none of them under ``torchrun``
-    (the ``env://`` variables); anything else, or no launcher, is a
-    ValueError.  ``timeout_s`` bounds the rendezvous and every barrier.
-    Returns (rank, world_size)."""
+    ``coordinator`` ("host:port"), ``num_processes`` and ``process_id``
+    win where given; the rest comes from torchrun's ``env://`` variables
+    (only with none given), Open MPI or SLURM (module docstring).  What
+    no launcher supplies is a ValueError.  ``timeout_s`` bounds the
+    rendezvous and every barrier.  Returns (rank, world_size)."""
     import torch.distributed as dist
 
-    manual = (coordinator, num_processes, process_id)
+    given = (coordinator, num_processes, process_id)
     timeout = datetime.timedelta(seconds=timeout_s)
-    if all(a is not None for a in manual):
+    env = os.environ
+    if all(a is None for a in given) and all(v in env for v in ENV_VARS):
+        dist.init_process_group("gloo", init_method="env://",
+                                timeout=timeout)
+        local_id = env.get("LOCAL_RANK")
+    else:
+        found = cluster_launch(env)
+        local_id = None
+        if found is not None:
+            coord, world, rank, local_id = found
+            coordinator = coordinator if coordinator is not None else coord
+            num_processes = (num_processes if num_processes is not None
+                             else world)
+            process_id = process_id if process_id is not None else rank
+        missing = [o for o, a in zip(("--dist-coordinator", "--dist-nprocs",
+                                      "--dist-rank"),
+                                     (coordinator, num_processes,
+                                      process_id)) if a is None]
+        if missing:
+            raise ValueError(
+                "--dist: no launcher found for " + ", ".join(missing)
+                + " (no torchrun env://, Open MPI or SLURM environment): "
+                "run under torchrun, mpirun or srun, or pass "
+                "--dist-coordinator HOST:PORT --dist-nprocs N "
+                "--dist-rank I")
         dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
                                 world_size=num_processes, rank=process_id,
                                 timeout=timeout)
-    elif all(a is None for a in manual):
-        missing = [v for v in ENV_VARS if v not in os.environ]
-        if missing:
-            raise ValueError(
-                "--dist: no launcher found (" + ", ".join(missing)
-                + " unset): run under torchrun, or pass --dist-coordinator "
-                "HOST:PORT --dist-nprocs N --dist-rank I")
-        dist.init_process_group("gloo", init_method="env://",
-                                timeout=timeout)
-    else:
-        raise ValueError("--dist-coordinator, --dist-nprocs and --dist-rank "
-                         "are given together or not at all")
     rank, world = dist.get_rank(), dist.get_world_size()
+    hosts = [None] * world
+    dist.all_gather_object(hosts, socket.gethostname())
+    local_rank, local_world = host_place(
+        hosts, rank, None if local_id is None else int(local_id))
     _state.update(rank=rank, world=world, timeout_s=timeout_s,
-                  local_rank=int(os.environ.get("LOCAL_RANK", rank)),
-                  local_world=int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+                  local_rank=local_rank, local_world=local_world)
     if torch.cuda.is_available():
         torch.cuda.set_device(local_devices()[0])
     return rank, world

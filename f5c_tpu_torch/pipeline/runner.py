@@ -86,7 +86,7 @@ from ..ops.abea import (PAD, band_offsets, byte_offsets, ragged_offsets,
 from ..ops.abea_ultra import WIN_BANDS
 from ..ops.hmm import transition_params
 from ..ops.hmm_meta import pack_meta
-from ..ops.seq_ranks import pack_codes, pack_seqs, ranks_from_packed, seq_codes
+from ..ops.seq_ranks import pack_codes, pack_seqs, seq_codes
 from ..parallel import mesh
 from ..parallel.distributed import MARKER
 from .methylation import MethCalls
@@ -790,9 +790,9 @@ class Pipeline:
 
     def _launch_abea(self, todo, dev, windowed: bool = False):
         """One ABEA launch for ``todo`` on ``dev``: upload the event slab
-        and the 2-bit sequences, rank on the device, fill, walk
-        (unchunked, or by windows of WIN_BANDS bands), and start the
-        walk's copy back.  Returns (part, bytes uploaded); the part is
+        and the 2-bit sequences, fill (the kernels rank the k-mers of the
+        packed sequences themselves), walk (unchunked, or by windows of
+        WIN_BANDS bands), and start the walk's copy back.  Returns (part, bytes uploaded); the part is
         (event slab on dev, reads' offsets in it, byte_off, params, the
         walk's HostCopy)."""
         k = self.model.k
@@ -809,10 +809,10 @@ class Pipeline:
         band_off = band_offsets(ev_len, rk_len)
         byte_off = byte_offsets(ev_len, rk_len)
         slab_dev = h2d(slab, dev)
-        rk_slab = ranks_from_packed(h2d(packed, dev), k)
-        args = (slab_dev, h2d(ev_off, dev), h2d(ev_len, dev), rk_slab,
-                h2d(rk_off, dev), h2d(rk_len, dev), *self._nuc_dev_tables(dev),
-                h2d(params, dev), h2d(band_off, dev), h2d(byte_off, dev))
+        args = (slab_dev, h2d(ev_off, dev), h2d(ev_len, dev),
+                h2d(packed, dev), h2d(rk_off, dev), h2d(rk_len, dev), k,
+                *self._nuc_dev_tables(dev), h2d(params, dev),
+                h2d(band_off, dev), h2d(byte_off, dev))
         if windowed:
             flat, start_e, n = abea_ultra_cuda.abea_align_windowed(
                 *args, int(byte_off[-1]), int(np.diff(band_off).max()),

@@ -24,7 +24,7 @@ from .ops.hmm import transition_params
 from .ops.hmm_cuda import order_windows
 from .ops.hmm_meta import (RT_LP_STAY, RT_LP_STEP, RT_RC, RT_SCALE, RT_SHIFT,
                            RT_VAR, build_inputs, pack_meta)
-from .ops.seq_ranks import pack_codes, seq_codes
+from .ops.seq_ranks import pack_codes, pack_seqs, seq_codes
 
 
 def random_seq(rng, n: int) -> str:
@@ -51,8 +51,10 @@ def abea_reads(rng, n_kmers, model, events_per_kmer=1.7, noise=1.0,
 
 
 def abea_inputs(seqs, events, model, scale=None, shift=None) -> dict:
-    """The ragged ABEA layout of ops/abea.py as NumPy arrays, ranks from
-    the model's NumPy ranker."""
+    """The ragged ABEA layout of ops/abea.py as NumPy arrays: ranks from
+    the model's NumPy ranker (``rk_pool``, ``rk_off``) for the plain
+    fills, and the sequences 2-bit packed (``seq_packed``, ``seq_off``:
+    ``pack_seqs``) with the model's ``k`` for the kernel wrappers."""
     B = len(seqs)
     ev_len = np.array([e.shape[0] for e in events], np.int32)
     ranks = [model.kmer_ranks(s).astype(np.int32) for s in seqs]
@@ -61,15 +63,58 @@ def abea_inputs(seqs, events, model, scale=None, shift=None) -> dict:
     shift = np.zeros(B, np.float32) if shift is None else shift
     band_off = band_offsets(ev_len, rk_len)
     byte_off = byte_offsets(ev_len, rk_len)
+    seq_packed, seq_off = pack_seqs(seqs)
     return dict(
         ev_pool=np.concatenate(events).astype(np.float32),
         ev_off=ragged_offsets(ev_len)[:-1], ev_len=ev_len,
         rk_pool=np.concatenate(ranks), rk_off=ragged_offsets(rk_len)[:-1],
+        seq_packed=seq_packed, seq_off=seq_off, k=model.k,
         rk_len=rk_len, level_mean=model.level_mean,
         level_stdv=model.level_stdv, level_log_stdv=model.level_log_stdv,
         params=read_params(ev_len, rk_len, scale, shift),
         band_off=band_off, byte_off=byte_off,
         n_bands=int(band_off[-1]), n_bytes=int(byte_off[-1]))
+
+
+def nucleotide_model(k: int):
+    """A nucleotide model of ``k`` (5, 6 or 9) for the kernel checks: the
+    R9.4 RNA 5-mer and DNA 6-mer tables, the synthetic 9-mer table."""
+    from .models import builtin_model
+
+    if k == K9:
+        return k9_models()[0]
+    return builtin_model({5: "rna_r9_nucleotide",
+                          6: "dna_r9_nucleotide"}[k])
+
+
+def abea_rank_cases(rng, k: int) -> list[str]:
+    """Reads for the rank probe (``abea_cuda.abea_ranks``) and the fills
+    that rank packed sequences: one read of exactly k bases (one k-mer),
+    then reads of 4m + 1 bases, so that the reads start at every base
+    offset mod 4 of the packed buffer (``pack_seqs``), one read with runs
+    of N (ranked as A), and random reads of up to 300 bases."""
+    step = k + (1 - k) % 4                 # the least 4m + 1 >= k
+    lengths = [k] + [step + 4 * j for j in range(5)]
+    lengths += [int(n) for n in rng.integers(k, 300, 8)]
+    seqs = [random_seq(rng, n) for n in lengths]
+    with_n = list(random_seq(rng, 3 * k + 7))
+    for j in (0, 1, k, k + 1, k + 2, 3 * k + 6):
+        with_n[j] = "N"
+    seqs.insert(3, "".join(with_n))
+    return seqs
+
+
+def kmer_events(rng, seqs, model) -> list[np.ndarray]:
+    """Events along each sequence's k-mers, ~1.7 a k-mer, with noise
+    (``abea_reads``' construction for given sequences)."""
+    events = []
+    for seq in seqs:
+        kr = model.kmer_ranks(seq)
+        ne = max(int(kr.shape[0] * 1.7), 1)
+        which = np.floor(np.linspace(0, kr.shape[0], ne, endpoint=False))
+        events.append((model.level_mean[kr[which.astype(np.int64)]]
+                       + rng.normal(0.0, 1.0, ne)).astype(np.float32))
+    return events
 
 
 def hmm_windows(rng, n_kmers, model, kw=None) -> dict:

@@ -9,7 +9,13 @@ directions (bytes past n are unspecified).
 
 The XLA and oracle cases use mixed read lengths: n_kmers below and above
 128, reads short enough that their whole band straddles the trim column,
-and one read whose events do not follow its sequence (it fails QC).
+and one read whose events do not follow its sequence (it fails QC).  They
+go through the wrappers, which take the sequences 2-bit packed and rank
+them (K11) before the plain fill; at k = 5, 6 and 9 the four wrappers
+give what the plain fills give on ranks_from_packed's ranks and on the
+NumPy ranker's, on reads at every offset mod 4 of the packed buffer (the
+ring kernel's case has ranks but no sequences, so it runs the plain fill
+and walk on its ranks).
 """
 
 import numpy as np
@@ -19,8 +25,10 @@ import torch
 from f5c_tpu.models import builtin_model
 from f5c_tpu.ops.abea_ref import Scalings
 from f5c_tpu_torch import synthetic
-from f5c_tpu_torch.ops import abea_cuda
+from f5c_tpu_torch.ops import (abea as port_abea, abea_cuda, abea_ultra,
+                               abea_ultra_cuda)
 from f5c_tpu_torch.ops.abea import band_offsets
+from f5c_tpu_torch.ops.seq_ranks import ranks_from_packed
 
 N_KMERS = [20, 45, 100, 127, 128, 129, 250, 400]
 UNRELATED = 6
@@ -33,14 +41,32 @@ def _dirs(flat, off, n):
     return d.reshape(-1)[:n]
 
 
+TABLES = ("level_mean", "level_stdv", "level_log_stdv", "params",
+          "band_off")
+
+
+def _tensors(x: dict) -> dict:
+    return {k: (torch.from_numpy(np.array(v))
+                if isinstance(v, np.ndarray) else v) for k, v in x.items()}
+
+
 def _run_port(x: dict):
-    t = {k: (torch.from_numpy(np.array(v))
-             if isinstance(v, np.ndarray) else v) for k, v in x.items()}
-    flat, start_e, n = abea_cuda.abea_align(
-        *(t[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool", "rk_off",
-                         "rk_len", "level_mean", "level_stdv",
-                         "level_log_stdv", "params", "band_off",
-                         "byte_off", "n_bands", "n_bytes")))
+    """The port's ABEA on ``x``: through abea_cuda.abea_align on the
+    packed sequences where ``x`` has them, else (ranks only) the plain
+    fill and walk on its ranks."""
+    t = _tensors(x)
+    if "seq_packed" in x:
+        flat, start_e, n = abea_cuda.abea_align(
+            *(t[k] for k in ("ev_pool", "ev_off", "ev_len", "seq_packed",
+                             "seq_off", "rk_len", "k", *TABLES, "byte_off",
+                             "n_bands", "n_bytes")))
+    else:
+        trace, llk, start_e = port_abea.abea_fill_plain(
+            *(t[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool",
+                             "rk_off", "rk_len", *TABLES)))
+        flat, n = port_abea.abea_walk_plain(trace, llk, t["band_off"],
+                                            start_e, t["rk_len"],
+                                            t["byte_off"])
     return flat.numpy(), start_e.numpy(), n.numpy()
 
 
@@ -122,3 +148,63 @@ def test_plain_matches_numpy_oracle(mixed):
         np.testing.assert_array_equal(pairs, ref.pairs, err_msg=str(i))
         assert start_e[i] == ref.pairs[-1, 1]
     assert n_failed == 1
+
+
+@pytest.mark.parametrize("k", [5, 6, 9])
+def test_wrappers_on_packed_seqs_match_the_ranked_path(k):
+    """abea_fill, abea_align, abea_fill_window and abea_align_windowed on
+    the packed sequences (CPU: K11's plain version, then the plain
+    fills) give bit for bit what the plain fills give on the ranks of
+    ranks_from_packed at the reads' base offsets and on the NumPy
+    ranker's ranks; the reads start at every offset mod 4, one has Ns
+    and one is exactly k long (synthetic.abea_rank_cases)."""
+    model = synthetic.nucleotide_model(k)
+    rng = np.random.default_rng(40 + k)
+    seqs = synthetic.abea_rank_cases(rng, k)
+    x = synthetic.abea_inputs(seqs, synthetic.kmer_events(rng, seqs, model),
+                              model)
+    t = _tensors(x)
+    assert len(seqs[0]) == k and "N" in seqs[3]
+    assert set(x["seq_off"] % 4) == {0, 1, 2, 3}
+    head = [t[f] for f in ("ev_pool", "ev_off", "ev_len")]
+    tables = [t[f] for f in TABLES]
+    new = [*head, t["seq_packed"], t["seq_off"], t["rk_len"], k, *tables]
+    ranked = [*head, ranks_from_packed(t["seq_packed"], k), t["seq_off"],
+              t["rk_len"], *tables]
+    numpy_ranked = [*head, t["rk_pool"], t["rk_off"], t["rk_len"], *tables]
+
+    def same(got, *wants):
+        # state records hold ints as f32 bits: compare every output's bits
+        for want in wants:
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if g is not None:
+                    if g.dtype == torch.float32:
+                        g, w = g.view(torch.int32), w.view(torch.int32)
+                    assert torch.equal(g, w)
+
+    fill = port_abea.abea_fill_plain(*ranked)
+    same(abea_cuda.abea_fill(*new, x["n_bands"]), fill,
+         port_abea.abea_fill_plain(*numpy_ranked))
+    flat, n = port_abea.abea_walk_plain(fill[0], fill[1], t["band_off"],
+                                        fill[2], t["rk_len"], t["byte_off"])
+    aligned = abea_cuda.abea_align(*new, t["byte_off"], x["n_bands"],
+                                   x["n_bytes"])
+    same(aligned, (flat, fill[2], n))
+    assert int((n > 0).sum()) >= len(seqs) - 1
+
+    nb_max = int(np.diff(x["band_off"]).max())
+    win = 37
+    nw = abea_ultra.n_windows(nb_max, win)
+    s0 = abea_ultra.initial_state(t["params"])
+    for base, n_win, trace in ((2, nw, False), (2 + win, 1, True)):
+        same(abea_ultra_cuda.abea_fill_window(*new, s0, base, win, n_win,
+                                              trace),
+             abea_ultra.fill_window_plain(*ranked, s0, base, win, n_win,
+                                          trace),
+             abea_ultra.fill_window_plain(*numpy_ranked, s0, base, win,
+                                          n_win, trace))
+    same(abea_ultra_cuda.abea_align_windowed(
+        *new, t["byte_off"], x["n_bytes"], nb_max, win), aligned,
+        abea_ultra.align_windowed(*ranked, t["byte_off"], x["n_bytes"],
+                                  nb_max, win))

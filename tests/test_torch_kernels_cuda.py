@@ -5,7 +5,9 @@ with nvcc at first use).
 ABEA must be bit-identical (trace, band placement, start event, walk
 length and bytes); the fused HMM forward scores (window metadata in)
 agree to ops/hmm.py's stated f32 tolerance, and the ranks its prologue
-computes (the rank probe) equal build_inputs' bit for bit.  Without a
+computes (the rank probe) equal build_inputs' bit for bit, as do the
+k-mer ranks that the ABEA fills compute from the packed sequences (their
+probe) ranks_from_packed's.  Without a
 CUDA device every test here skips; run them on the card with ``python -m
 pytest tests/test_torch_kernels_cuda.py``; the windowed ABEA kernels of
 csrc/abea_ultra.cu are held to the same bits, and the event detector and
@@ -22,6 +24,8 @@ from f5c_tpu_torch.models import builtin_model
 from f5c_tpu_torch import synthetic
 from f5c_tpu_torch.ops import (abea, abea_cuda, hmm, hmm_cuda, hmm_meta,
                                viterbi_cuda)
+from f5c_tpu_torch.ops.seq_ranks import (kmer_positions, pack_seqs,
+                                         ranks_at_kmers, ranks_from_packed)
 
 pytestmark = pytest.mark.needs_cuda
 
@@ -39,18 +43,23 @@ def _on(arrays: dict, device):
             for k, v in arrays.items()}
 
 
+def _fill_args(x: dict) -> list:
+    """The fill wrappers' arguments from a synthetic.abea_inputs batch: the
+    sequences 2-bit packed, ranked by the kernel."""
+    return [x[k] for k in ("ev_pool", "ev_off", "ev_len", "seq_packed",
+                           "seq_off", "rk_len", "k", "level_mean",
+                           "level_stdv", "level_log_stdv", "params",
+                           "band_off")]
+
+
 def test_abea_kernels_match_plain(cuda):
     model = builtin_model("dna_r9_nucleotide")
     rng = np.random.default_rng(11)
     n_kmers = [20, 64, 127, 128, 129, 300, 700, 1500, 45, 90, 5000]
     seqs, events = synthetic.abea_reads(rng, n_kmers, model, unrelated=(8,))
     x = _on(synthetic.abea_inputs(seqs, events, model), cuda)
-    fill_args = [x[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool",
-                                "rk_off", "rk_len", "level_mean",
-                                "level_stdv", "level_log_stdv", "params",
-                                "band_off")]
-    got = abea_cuda.abea_fill(*fill_args, x["n_bands"])
-    want = abea.abea_fill_plain(*fill_args)
+    got = abea_cuda.abea_fill(*_fill_args(x), x["n_bands"])
+    want = abea.abea_fill_packed_plain(*_fill_args(x))
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -135,12 +144,8 @@ def test_kernels_match_plain_with_9mer_tables(cuda):
     seqs, events = synthetic.abea_reads(rng, [40, 300, 900, 2500], nuc,
                                         unrelated=(1,))
     x = _on(synthetic.abea_inputs(seqs, events, nuc), cuda)
-    fill_args = [x[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool",
-                                "rk_off", "rk_len", "level_mean",
-                                "level_stdv", "level_log_stdv", "params",
-                                "band_off")]
-    got = abea_cuda.abea_fill(*fill_args, x["n_bands"])
-    want = abea.abea_fill_plain(*fill_args)
+    got = abea_cuda.abea_fill(*_fill_args(x), x["n_bands"])
+    want = abea.abea_fill_packed_plain(*_fill_args(x))
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -160,6 +165,28 @@ def test_kernels_match_plain_with_9mer_tables(cuda):
     assert torch.equal(got, hmm_meta.build_inputs(*args, k=9,
                                                   kw=m["max_km"])[0])
     assert int(got.max()) >= 4 ** 9
+
+
+@pytest.mark.parametrize("k", [5, 6, 9])
+def test_abea_rank_probe(cuda, k):
+    """The ranks the fill kernels compute where they stage a k-mer (the
+    probe f5c_abea_ranks), bit for bit ranks_from_packed's at every k-mer
+    of every read and 0 elsewhere, on synthetic.abea_rank_cases (reads at
+    every offset mod 4 of the packed buffer, Ns, a read of one k-mer) and
+    on 2,000 random reads."""
+    rng = np.random.default_rng(60 + k)
+    for seqs in (synthetic.abea_rank_cases(rng, k),
+                 [synthetic.random_seq(rng, int(n))
+                  for n in rng.integers(k, 3000, 2000)]):
+        packed, off = pack_seqs(seqs)
+        rk_len = np.array([len(q) - k + 1 for q in seqs], np.int32)
+        args = [torch.as_tensor(a, device=cuda) for a in (packed, off,
+                                                          rk_len)]
+        got = abea_cuda.abea_ranks(*args, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ranks_at_kmers(*args, k))
+        pos = kmer_positions(args[1], args[2])
+        assert torch.equal(got[pos], ranks_from_packed(args[0], k)[pos])
 
 
 def test_hmm_rank_probe_matches_build_inputs(cuda):
@@ -193,21 +220,20 @@ def test_abea_window_kernels_match_plain(cuda, win):
     n_kmers = [20, 128, 129, 700, 1500, 45, 3000]
     seqs, events = synthetic.abea_reads(rng, n_kmers, model, unrelated=(5,))
     x = _on(synthetic.abea_inputs(seqs, events, model), cuda)
-    args = [x[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool",
-                           "rk_off", "rk_len", "level_mean", "level_stdv",
-                           "level_log_stdv", "params", "band_off")]
+    args = _fill_args(x)
     nb_max = int(np.diff(x["band_off"].cpu().numpy()).max())
     nw = abea_ultra.n_windows(nb_max, win)
     s0 = abea_ultra.initial_state(x["params"])
     got = abea_ultra_cuda.abea_fill_window(*args, s0, 2, win, nw, False)
-    want = abea_ultra.fill_window_plain(*args, s0, 2, win, nw, False)
+    want = abea_ultra.fill_window_packed_plain(*args, s0, 2, win, nw, False)
     torch.cuda.synchronize()
     assert torch.equal(_bits(got[0]), _bits(want[0]))
     w = nw - 1
     state = want[0][:, w - 1].contiguous() if w else s0
     base = 2 + w * win
     got = abea_ultra_cuda.abea_fill_window(*args, state, base, win, 1, True)
-    want = abea_ultra.fill_window_plain(*args, state, base, win, 1, True)
+    want = abea_ultra.fill_window_packed_plain(*args, state, base, win, 1,
+                                               True)
     torch.cuda.synchronize()
     for g, p in zip(got, want):
         assert torch.equal(_bits(g), _bits(p))
@@ -397,10 +423,7 @@ def test_wrappers_launch_on_their_tensors_device(cuda):
                 builtin_model("dna_r9_cpg"))
     seqs, events = synthetic.abea_reads(rng, [20, 300, 1500], nuc)
     x = _on(synthetic.abea_inputs(seqs, events, nuc), dev0)
-    fill_args = [x[k] for k in ("ev_pool", "ev_off", "ev_len", "rk_pool",
-                                "rk_off", "rk_len", "level_mean",
-                                "level_stdv", "level_log_stdv", "params",
-                                "band_off")]
+    fill_args = _fill_args(x)
     m = synthetic.hmm_meta_windows(rng, [1, 17, 40, 300, 2500], cpg)
     t = _on(m, dev0)
     hmm_args = [t[k] for k in HMM_META] + [m["k"]]
@@ -427,6 +450,8 @@ def test_wrappers_launch_on_their_tensors_device(cuda):
         walk_args = (fill[0], fill[1], x["band_off"], fill[2], x["rk_len"],
                      x["byte_off"])
         walk = abea_cuda.abea_walk(*walk_args, x["n_bytes"])
+        seq_ranks = abea_cuda.abea_ranks(x["seq_packed"], x["seq_off"],
+                                         x["rk_len"], x["k"])
         win = abea_ultra_cuda.abea_fill_window(*fill_args, s0, 2, 97, 1,
                                                True)
         windowed = abea_ultra_cuda.abea_align_windowed(
@@ -443,12 +468,14 @@ def test_wrappers_launch_on_their_tensors_device(cuda):
         fast, ref = viterbi_cuda.division_probe(a, torch.full_like(a, 3.0))
         host = HostCopy([walk[0], scores]).wait()
     torch.cuda.synchronize(dev0)
-    for g, w in zip(fill, abea.abea_fill_plain(*fill_args)):
+    for g, w in zip(fill, abea.abea_fill_packed_plain(*fill_args)):
         assert g.device == dev0 and torch.equal(g, w)
     for g, w in zip(walk, abea.abea_walk_plain(*walk_args)):
         assert torch.equal(g, w)
-    for g, w in zip(win, abea_ultra.fill_window_plain(*fill_args, s0, 2, 97,
-                                                       1, True)):
+    assert torch.equal(seq_ranks, ranks_at_kmers(
+        x["seq_packed"], x["seq_off"], x["rk_len"], x["k"]))
+    for g, w in zip(win, abea_ultra.fill_window_packed_plain(
+            *fill_args, s0, 2, 97, 1, True)):
         assert torch.equal(_bits(g), _bits(w))
     for g, w in zip(windowed, abea_cuda.abea_align(
             *fill_args, x["byte_off"], x["n_bands"], x["n_bytes"])):

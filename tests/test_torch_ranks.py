@@ -1,8 +1,11 @@
 """The port's integer device ops against the native host library and the
 JAX package, bit for bit:
 
-- ranks_from_packed (K11) == native.kmer_ranks on every position a read's
-  ABEA fill consumes;
+- ranks_from_packed (K11's plain version) == native.kmer_ranks on every
+  position a read's ABEA fill consumes, and the rank probe's CPU path
+  (abea_cuda.abea_ranks: ranks at every read's k-mers, 0 elsewhere) on
+  the probe's cases (reads at every offset mod 4, Ns, a read of one
+  k-mer) at k = 5, 6 and 9;
 - hmm_meta.build_inputs (K6) == native.hmm_window_ranks (ranks, n_km) and
   == the JAX hmm_meta.build_inputs (every per-window array), on forward
   and reverse strands, methylated windows and the window-edge cases the
@@ -35,6 +38,39 @@ def test_ranks_from_packed_match_native(k):
     for s, o in zip(seqs, off):
         want = native.kmer_ranks(s, k)
         np.testing.assert_array_equal(ranks[o:o + want.shape[0]], want)
+
+
+@pytest.mark.parametrize("k", [5, 6, 9])
+def test_rank_probe_plain_matches_native(k):
+    from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.ops import abea_cuda
+
+    seqs = synthetic.abea_rank_cases(np.random.default_rng(k), k)
+    packed, off = pack_seqs(seqs)
+    rk_len = np.array([len(s) - k + 1 for s in seqs], np.int32)
+    assert set(off % 4) == {0, 1, 2, 3} and rk_len.min() == 1
+    got = abea_cuda.abea_ranks(torch.from_numpy(packed),
+                               torch.from_numpy(off),
+                               torch.from_numpy(rk_len), k).numpy()
+    want = np.zeros(4 * packed.shape[0], np.int32)
+    for s, o in zip(seqs, off):
+        ranks = native.kmer_ranks(s, k)
+        want[o:o + ranks.shape[0]] = ranks
+    np.testing.assert_array_equal(got, want)
+    assert got.max() > 4 ** (k - 1)
+
+
+def test_rank_probe_refuses_partial_words():
+    """The kernels read the packed sequences by 32-bit words: a buffer of
+    another length is refused on every device (pack_seqs pads)."""
+    from f5c_tpu_torch.ops import abea_cuda
+
+    packed, off = pack_seqs(["ACGTACGTA", "TTGCA"])
+    assert packed.shape[0] % 4 == 0
+    rk_len = torch.tensor([4, 0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="whole 4-byte-aligned"):
+        abea_cuda.abea_ranks(torch.from_numpy(packed[:-1]),
+                             torch.from_numpy(off), rk_len, 6)
 
 
 def _run_case(refs, items, read_rc):

@@ -38,8 +38,9 @@ FORCE_BUDGET = 1_000_000   # every golden read over its share of a wave
 FORCE_WIN = 300
 FLOAT_COLS = {4, 5, 6}     # meth-out-version 1: llr, ll_meth, ll_unmeth
 
-FIELDS = ("ev_pool", "ev_off", "ev_len", "rk_pool", "rk_off", "rk_len",
-          "level_mean", "level_stdv", "level_log_stdv", "params",
+# the wrappers' arguments: the reads' sequences 2-bit packed
+FIELDS = ("ev_pool", "ev_off", "ev_len", "seq_packed", "seq_off", "rk_len",
+          "k", "level_mean", "level_stdv", "level_log_stdv", "params",
           "band_off", "byte_off")
 
 
@@ -138,7 +139,7 @@ def test_window_state_and_trace_layout(mixed):
     bands, and the checkpoint after n windows resumes to the same state
     as running them in one call."""
     _seqs, _events, _scale, _shift, x, t, _ = mixed
-    args = [t[k] for k in FIELDS[:11]]
+    args = [t[k] for k in FIELDS[:12]]
     trace, llk, _ = abea_cuda.abea_fill(*args, x["n_bands"])
     s0 = abea_ultra.initial_state(t["params"])
     whole, tr, lk = abea_ultra_cuda.abea_fill_window(*args, s0, 2, 97, 3,
