@@ -110,7 +110,10 @@ abs error against the plain version, ms (for K8 and K9 the kernels
 alone, with the whole wrapper call as wrapper_ms; for K9 also its peak
 kernel alone, peaks_ms and its bound, and the rounds of its peak scan on
 the main path, and as library_ms torch.cumsum's prefix sums of its
-samples; for K11, fused into K1 and K3, its probe against the torch ops
+samples; K9's three stages, sums and tracks, peak scan and assembly, each
+timed alone at golden x85's first launch and, as ultra_*, at the ultra
+launch, with their own bounds and plain models, the sums' library_ms two
+flat torch.cumsum calls; for K11, fused into K1 and K3, its probe against the torch ops
 that ranked before, its launches K1's and K3's), plain ms, and the
 roofline bound
 of the timed launch: bytes each input read once and each output written
@@ -175,6 +178,10 @@ HMM_CELL_OPS = 55    # f32 ops (exp/log as one) of an HMM (k-mer, event) cell
 # peak_detector, f5c_events_from_peaks)
 EV_F64_PER_SAMPLE, EV_F32_PER_SAMPLE = 22, 21
 EV_F64_PER_EVENT, EV_F32_PER_EVENT = 2, 5
+# f32 operations a sample of K9's sums and tracks alone (the square, the
+# two tracks' 8 each; their f64 ones are EV_F64_PER_SAMPLE) and of its
+# peak scan (~4 comparisons)
+EV_SUMS_F32_PER_SAMPLE, EV_PEAK_F32_PER_SAMPLE = 17, 4
 # f32 ops of a Viterbi (k-mer, event) cell: emission 6, MATCH 5 adds and 4
 # maxes, BAD_EVENT 2 adds and 1 max, KMER_SKIP 2 adds, 1 max, 3 more
 VIT_CELL_OPS = 24
@@ -195,6 +202,18 @@ KERNELS = {
                "f5c_tpu/ops/events_device.py:272"),
     "viterbi": ("f5c_tpu_torch/csrc/viterbi.cu", "f5c_tpu/ops/hmm.py:517"),
 }
+# K9's three stages, each timed alone at golden x85's first launch and at
+# the ultra launch (time_events_stages) and listed as a kernel of its own
+K9_STAGES = {
+    "events_sums": ("f5c_tpu_torch/csrc/events.cu",
+                    "f5c_tpu/ops/events_device.py:95"),
+    "events_peaks": ("f5c_tpu_torch/csrc/events.cu",
+                     "f5c_tpu/ops/events_device.py:198"),
+    "events_assemble": ("f5c_tpu_torch/csrc/events.cu",
+                        "f5c_tpu/ops/events_device.py:308"),
+}
+# their rows, by launch ("golden_x85", "ultra")
+STAGES: dict = {}
 # the wrapper of a kernel where its name differs (the fused HMM kernel
 # counts its launches as hmm_forward)
 WRAPPERS = {"hmm_forward": "hmm_forward_meta", "events": "detect_events",
@@ -1035,9 +1054,12 @@ def hold_ultra_events(torch, calls) -> dict:
     kern_ms = kernel_ms(torch, _build,
                         lambda: events_cuda.detect_events(*args, **kw), 3)
     peak_scan = time_peak_scan(torch, _build, args, 3)
+    stages = time_events_stages(torch, args, 5, "ultra")
     off = args[1].cpu().numpy()
     return dict(events_ms=kern_ms, events_wrapper_ms=ms,
                 events_cumsum_ms=cumsum_ms(torch, args[0], 3),
+                **{f"events_stage_{k}": v for k, v in stages.items()},
+                events_fixed_reads=events_cuda.fixed_reads["events"],
                 **{f"events_{k}": v for k, v in peak_scan.items()},
                 events_plain_ms=plain_ms,
                 events_bound_ms=bound_of("events", args, kw, got)[0],
@@ -1055,6 +1077,112 @@ def cumsum_ms(torch, samples, reps: int) -> float:
     x = samples.double()
     rows = torch.stack([x, x * x])
     return time_ms(torch, lambda: torch.cumsum(rows, dim=1), reps)
+
+
+def cumsum_flat_ms(torch, samples, reps: int) -> float:
+    """The same prefix sums as two flat 1-D torch.cumsum calls, of the f64
+    samples, then of their squares (the 2-row call of cumsum_ms may scan a
+    row to a block): the fair yardstick of K9's sums."""
+    x = samples.double()
+    sq = x * x
+    return time_ms(torch, lambda: (torch.cumsum(x, 0), torch.cumsum(sq, 0)),
+                   reps)
+
+
+def _bits_err(got, want) -> float:
+    """0.0 when every output pair is equal bit for bit (floats as their
+    bits), else the largest absolute difference (inf if none shows)."""
+    import torch
+
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    same = all(g.shape == w.shape and torch.equal(
+        g.view(ints.get(g.dtype, g.dtype)),
+        w.to(g.device).view(ints.get(w.dtype, w.dtype)))
+        for g, w in zip(got, want))
+    if same:
+        return 0.0
+    diff = [float((g.double() - w.to(g.device).double()).abs().max())
+            for g, w in zip(got, want) if g.shape == w.shape and g.numel()]
+    return max([d for d in diff if d > 0] or [float("inf")])
+
+
+def stage_rows(launches: int, err: float) -> list:
+    """The JSON rows of K9's stages: timed alone at golden x85's first
+    launch, the ultra launch's numbers beside them as ultra_*; their
+    launches are K9's on the main path (each launch runs each stage once),
+    their error the larger of theirs and K9's at every checked launch."""
+    main = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = []
+    for name, (source, replaces) in K9_STAGES.items():
+        row, ultra = STAGES["golden_x85"][name], STAGES["ultra"][name]
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches,
+            max_abs_err=max(row["max_abs_err"], ultra["max_abs_err"], err),
+            **{k: row.get(k) for k in main},
+            **{f"ultra_{k}": v for k, v in ultra.items()},
+            **{k: v for k, v in row.items()
+               if k not in main and k != "max_abs_err"}))
+    return rows
+
+
+def time_events_stages(torch, args, reps: int, label: str) -> dict:
+    """K9's three stages at a recorded launch of the event detector, each
+    launched alone on one scratch (events_cuda.stages): the sums and
+    tracks held bit for bit to their plain model (sums_tracks_model), the
+    bounds slab to the sequential peak_scan of each read's tracks, the
+    assembly to its plain model (assemble_model) on the card's slabs;
+    each timed (CUDA events over ``reps`` launches of the stage alone:
+    where its kernels are shorter than their launches from the host, as
+    the assembly's at golden x85, the host's launch rate), with its
+    bound (bound_of) and its plain version's time (run once),
+    and for the sums torch.cumsum's prefix sums of the launch's f64
+    samples and squares, flat (library_ms) and as 2 rows.  Keeps the rows
+    in STAGES[label]; returns fields to print."""
+    from f5c_tpu_torch.ops import events_cuda
+    from f5c_tpu_torch.ops import events_device as ed
+
+    pa, off, rna = args[:3]
+    L = events_cuda.stages(pa, off, rna)
+    sums = (L.s, L.q, L.t1[:L.S_n], L.t2[:L.S_n], L.fixed)
+    want, sums_plain = run_once(torch,
+                                lambda: ed.sums_tracks_model(pa, off, rna))
+    err = {"events_sums": _bits_err(sums, want)}
+    t1, t2 = want[2].tolist(), want[3].tolist()
+    o = off.cpu().tolist()
+    peaks, peaks_plain = run_once(torch, lambda: [
+        ed.peak_scan(t1[a:b], t2[a:b], b - a, rna) for a, b in zip(o, o[1:])])
+    bnd, ne = L.bnd.cpu().tolist(), L.n_ev.cpu().tolist()
+    err["events_peaks"] = float(any(
+        bnd[a + 2 * i:a + 2 * i + ne[i] + 1] != [0] + p + [b - a]
+        for i, (a, b, p) in enumerate(zip(o, o[1:], peaks))))
+    slabs = [t.cpu() for t in (L.s, L.q, L.off, L.bnd, L.ev_off)]
+    events = (L.start, *L.out)
+    want_ev, asm_plain = run_once(torch, lambda: ed.assemble_model(*slabs))
+    err["events_assemble"] = _bits_err(events, want_ev)
+    bad = {k: v for k, v in err.items() if v}
+    if bad:
+        raise AssertionError(f"K9 stages at {label} differ from their plain "
+                             f"models: {bad}")
+    timed = {"events_sums": (L.sums, sums_plain, bound_of(
+                 "events_sums", (pa, off), {}, sums)),
+             "events_peaks": (L.peaks, peaks_plain, bound_of(
+                 "events_peaks", (L.t1[:L.S_n], L.t2[:L.S_n], off), {},
+                 (L.n_ev,))),
+             "events_assemble": (L.assemble, asm_plain, bound_of(
+                 "events_assemble", (L.s, L.q, off, L.bnd, L.ev_off), {},
+                 events))}
+    rows = {name: dict(ms=time_ms(torch, fn, reps), plain_ms=plain,
+                       bound_ms=bound[0], bound_by=bound[1],
+                       max_abs_err=err[name])
+            for name, (fn, plain, bound) in timed.items()}
+    rows["events_sums"].update(
+        library_ms=cumsum_flat_ms(torch, pa, reps),
+        library_2row_ms=cumsum_ms(torch, pa, reps), blocks=L.n_tiles,
+        fixed_reads=int(L.fixed.sum()))
+    STAGES[label] = rows
+    return {f"{name[7:]}_{k}": (round(v, 5) if isinstance(v, float) else v)
+            for name, row in rows.items() for k, v in row.items()}
 
 
 def hold_peak_probe(torch, dev) -> dict:
@@ -1649,6 +1777,26 @@ def bound_of(name: str, args, kw, out):
                         + EV_F32_PER_EVENT * events,
                         EV_F64_PER_SAMPLE * samples
                         + EV_F64_PER_EVENT * events)
+    if name == "events_sums":
+        # the samples and offsets in; S, Q, T1, T2 and fixed out
+        samples = args[0].numel()
+        return roofline(_nbytes(args[0], args[1], *out),
+                        EV_SUMS_F32_PER_SAMPLE * samples,
+                        EV_F64_PER_SAMPLE * samples)
+    if name == "events_peaks":
+        # the two tracks and the offsets in; the bounds (an event's and
+        # one more a read), the counts and the rounds out
+        samples, reads = args[0].numel(), out[0].numel()
+        bounds = int(out[0].sum()) + reads
+        return roofline(_nbytes(*args) + 4 * bounds + 8 * reads,
+                        EV_PEAK_F32_PER_SAMPLE * samples)
+    if name == "events_assemble":
+        # each bound read once with S and Q at it (an event's and one more
+        # a read), the offsets, and the events out
+        events, reads = out[0].numel(), args[2].numel() - 1
+        return roofline(20 * (events + reads)
+                        + _nbytes(args[2], args[4], *out),
+                        EV_F32_PER_EVENT * events, EV_F64_PER_EVENT * events)
     if name == "viterbi":
         spec = kw.get("host_spec")
         spec = args[0].cpu().numpy() if spec is None else spec
@@ -1742,7 +1890,8 @@ def profile_runs(torch, card, runner, datasets, reps: int = 3) -> None:
             os.remove(path)
             fields["k9_trace_names"] = json.dumps(
                 {k: text.count(f"events_{k}_kernel")
-                 for k in ("sums", "peaks", "assemble")},
+                 for k in ("tile_totals", "carry", "rescan", "fix", "tracks",
+                           "peaks", "assemble")},
                 separators=(",", ":"))
         say("profile", **fields, events=events, ea_engine=ea_engine,
             warm_walls_s=",".join(f"{w:.3f}" for w, _, _ in res),
@@ -2170,6 +2319,7 @@ def main(argv: list[str]) -> int:
         # K9's peak kernel alone at the timed launch, and its rounds on the
         # main path
         peak_scan = time_peak_scan(torch, _build, ev_a, 20)
+        stages_x85 = time_events_stages(torch, ev_a, 20, "golden_x85")
         peak_scan.update(
             rounds_max=scan_rounds["max"],
             rounds_mean=scan_rounds["sum"] / max(scan_rounds["reads"], 1))
@@ -2203,6 +2353,8 @@ def main(argv: list[str]) -> int:
             walls_ea_device=[round(w, 3) for w in ea_scale["device"]],
             events_wrapper_ms=round(wrapper_ms["events"], 4),
             events_peak_scan=json.dumps(peak_scan, separators=(",", ":")),
+            events_stages=json.dumps(stages_x85, separators=(",", ":")),
+            events_fixed_reads=events_cuda.fixed_reads["events"],
             viterbi_wrapper_ms=round(wrapper_ms["viterbi"], 4))
         say("timing", shapes=shapes, card=card.replace(" ", "_"),
             best_reads_per_s=f"{n_reads / min(walls['device']):.2f}",
@@ -2262,6 +2414,7 @@ def main(argv: list[str]) -> int:
                 kernels[-1]["wrapper_ms"] = wrapper_ms[name]
             if name == "events":
                 kernels[-1].update(peak_scan)
+        kernels += stage_rows(counts["events"], errs["events"])
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "f5c_tpu"))

@@ -37,7 +37,8 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _i64 = ctypes.c_longlong
 # C entry points: every pointer and the stream as void*, sizes as int
-# (a reference concat's length in codes as a 64-bit int)
+# (a reference concat's length in codes and a launch's events as 64-bit
+# ints)
 _SIGNATURES = {
     "f5c_abea_fill": [_vp] * 14 + [_int] * 4 + [_vp],
     "f5c_abea_ranks": [_vp] * 4 + [_int] * 2 + [_vp],
@@ -48,9 +49,9 @@ _SIGNATURES = {
     "f5c_abea_walk_window": [_vp] * 5 + [_int] * 4 + [_vp],
     "f5c_viterbi_rounds": [_vp] * 12 + [_int] * 4 + [_vp],
     "f5c_viterbi_division_probe": [_vp] * 4 + [_int] + [_vp],
-    "f5c_events_detect": [_vp] * 10 + [_int] * 3 + [_vp],
+    "f5c_events_sums": [_vp] * 9 + [_int] * 3 + [_vp],
     "f5c_events_peaks": [_vp] * 6 + [_int] * 4 + [_vp],
-    "f5c_events_assemble": [_vp] * 9 + [_int] + [_vp],
+    "f5c_events_assemble": [_vp] * 9 + [_int, _i64] + [_vp],
 }
 
 _lock = threading.Lock()

@@ -4,20 +4,25 @@
 ``f5c_tpu/ops/events_device.py`` (``detect_events_device``,
 ``detect_events_batch``).
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-scratch (28 bytes a sample; the host wrapper bounds a call's samples by
-``SAMPLE_BUDGET``) and the outputs, launches on torch's current
-stream of the tensors' device (under ``_build.device_guard``) and counts
-the call in ``launches``.  The peak scan runs one block
-a read, its chunks of samples side by side to an exact fixed point
-(``events_device.peak_scan_chunked`` is its plain model); the block's
-threads follow the launch's longest read (``events_device.peak_threads``).
-The wrapper reads the event counts, and the scan's rounds, back once, to
-size the compact output; every read, however many events it has, is
-detected on the card.  There is no fallback: a CUDA tensor launches the
-kernels or raises.  ``peaks_from_tracks`` runs the peak scan alone on
-given tracks (the probe the tests and chip_smoke.py hold to
-``events_device.peak_scan``).
+The wrapper checks device, dtype, shape and contiguity, reads the read
+offsets back once to build the kernels' tile table
+(``events_device.tile_table``) and size the peak scan's blocks, allocates
+the scratch (28 bytes a sample, 16 a tile; the host wrapper bounds a
+call's samples by ``SAMPLE_BUDGET``) and the outputs, launches on torch's
+current stream of the tensors' device (under ``_build.device_guard``) and
+counts the call in ``launches``.  The prefix sums and tracks run as a grid
+over every tile of every read (``events_device.prefix_sums_tiled`` is
+their plain model), the peak scan one block a read, its chunks of
+samples side by side to an exact fixed point (``peak_scan_chunked``; the
+block's threads follow the launch's longest read, ``peak_threads``), the
+assembly one thread an event.  The wrapper reads the event counts, the
+reads whose sums were redone and the scan's rounds back once, to size the
+compact output; every read, however many events it has, is detected on
+the card.  There is no fallback: a CUDA tensor launches the kernels or
+raises.  Probes: ``sums_tracks`` runs the sums and tracks alone,
+``peaks_from_tracks`` the peak scan alone (the tests and chip_smoke.py
+hold them to ``events_device.sums_tracks_model`` and ``peak_scan``), and
+``stages`` gives one launch's three stages to time apart.
 """
 
 from __future__ import annotations
@@ -28,14 +33,15 @@ import torch
 from ..backend import HostCopy, h2d
 from . import _build
 from .events_device import (MAX_THREADS, detect_events_plain, peak_chunk,
-                            peak_scan_chunked, peak_threads)
+                            peak_scan_chunked, peak_threads,
+                            sums_tracks_model, tile_table)
 
 launches = {"events": 0}
 # the most samples that detect_events_batch gives one call: the scratch
 # is 28 bytes a sample, so under 1 GB of device memory a call
 SAMPLE_BUDGET = 1 << 25
-# reads whose block redid its prefix sums in sample order (the scan's
-# order rounded somewhere), summed over the calls
+# reads whose prefix sums were redone in sample order (the tiled order
+# rounded somewhere), summed over the calls
 fixed_reads = {"events": 0}
 # the peak scan's rounds to its fixed point: the most in a read, and the
 # sum over reads and the reads, summed over the calls
@@ -47,64 +53,133 @@ def _padded(n: int) -> int:
     return -(-max(n, 1) // 8) * 8
 
 
-def detect_events(pa_pool, sig_off, rna: bool = False):
-    """Events of a ragged batch of pA signals (layout: ops/events_device.py):
-    ``pa_pool`` f32 [S], ``sig_off`` i64 [B+1].  Returns (ev_off i64
-    [B+1], start i64 [E], length f32 [E], mean f32 [E], stdv f32 [E]), on
-    the input's device.  The longest read, read back from ``sig_off``,
-    sizes the peak scan's blocks; the events do not depend on it."""
+class _Launch:
+    """One call of the kernels on a ragged batch: its scratch and outputs
+    on the card, and one method a stage (sums and tracks, peak scan,
+    assembly), each a launch on the current stream inside a span of
+    ``_build.launch_spans``."""
+
+    def __init__(self, pa_pool, sig_off, rna: bool):
+        dev = self.dev = pa_pool.device
+        off = sig_off.cpu().numpy()
+        lens = off[1:] - off[:-1]
+        self.B, self.S_n = lens.shape[0], pa_pool.shape[0]
+        max_len = int(lens.max()) if self.B else 0
+        if max_len >= 1 << 31:
+            raise ValueError(f"detect_events: a read of {max_len} samples; "
+                             "positions are int32")
+        tiles = tile_table(lens)
+        self.n_tiles = int(tiles[-1])
+        self.pa, self.off, self.rna = pa_pool, sig_off, int(rna)
+        self.threads = peak_threads(max_len)
+        f64, f32, i32 = torch.float64, torch.float32, torch.int32
+        self.tile_off = h2d(tiles, dev)
+        self.tot = torch.empty(2 * max(self.n_tiles, 1), dtype=f64,
+                               device=dev)
+        self.s, self.q = (torch.empty(self.S_n + self.B, dtype=f64,
+                                      device=dev) for _ in range(2))
+        self.t1, self.t2 = (torch.empty(_padded(self.S_n), dtype=f32,
+                                        device=dev) for _ in range(2))
+        self.bnd = torch.empty(self.S_n + 2 * self.B, dtype=i32, device=dev)
+        self.n_ev, self.fixed, self.rnd = (
+            torch.empty(self.B, dtype=i32, device=dev) for _ in range(3))
+        self.lib = _build.library()
+
+    def _call(self, name: str, *args) -> None:
+        with _build.device_guard(self.dev):
+            span = _build.span_start(self.dev)
+            err = getattr(self.lib, name)(
+                *args, _build.stream_handle(self.dev))
+            _build.span_stop(span, self.dev)
+        _build.check_error(self.lib, name, err)
+
+    def sums(self) -> None:
+        self._call("f5c_events_sums", *(t.data_ptr() for t in (
+            self.pa, self.off, self.tile_off, self.tot, self.s, self.q,
+            self.t1, self.t2, self.fixed)), self.B, self.n_tiles, self.rna)
+
+    def peaks(self) -> None:
+        self._call("f5c_events_peaks", *(t.data_ptr() for t in (
+            self.t1, self.t2, self.off, self.bnd, self.n_ev, self.rnd)),
+            self.B, self.rna, 0, self.threads)
+
+    def counts(self) -> np.ndarray:
+        """Waits for the card: [n_events, fixed, rounds] a read (i64), and
+        the event offsets and outputs allocated for the assembly."""
+        counts = torch.stack([self.n_ev, self.fixed, self.rnd]).cpu() \
+            .numpy().astype(np.int64)
+        ev_off = np.zeros(self.B + 1, np.int64)
+        np.cumsum(counts[0], out=ev_off[1:])
+        self.E = int(ev_off[-1])
+        self.ev_off = torch.from_numpy(ev_off).to(self.dev)
+        self.start = torch.empty(self.E, dtype=torch.int64, device=self.dev)
+        self.out = [torch.empty(self.E, dtype=torch.float32, device=self.dev)
+                    for _ in range(3)]
+        return counts
+
+    def assemble(self) -> None:
+        self._call("f5c_events_assemble", *(t.data_ptr() for t in (
+            self.s, self.q, self.off, self.bnd, self.ev_off, self.start,
+            *self.out)), self.B, self.E)
+
+
+def _device_of(pa_pool, sig_off, name: str) -> torch.device:
+    """Checks a wrapper's arguments; returns their device."""
     dev = pa_pool.device
     _build.check_tensor("pa_pool", pa_pool, torch.float32, 1, dev)
     _build.check_tensor("sig_off", sig_off, torch.int64, 1, dev)
     if sig_off.shape[0] < 1:
-        raise ValueError("detect_events: sig_off needs B + 1 entries")
-    if dev.type == "cpu":
+        raise ValueError(f"{name}: sig_off needs B + 1 entries")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def detect_events(pa_pool, sig_off, rna: bool = False):
+    """Events of a ragged batch of pA signals (layout: ops/events_device.py):
+    ``pa_pool`` f32 [S], ``sig_off`` i64 [B+1].  Returns (ev_off i64
+    [B+1], start i64 [E], length f32 [E], mean f32 [E], stdv f32 [E]), on
+    the input's device.  The offsets, read back, give the tile table and
+    the longest read, which sizes the peak scan's blocks; the events
+    depend on neither."""
+    if _device_of(pa_pool, sig_off, "detect_events").type == "cpu":
         return detect_events_plain(pa_pool, sig_off, rna)
-    if dev.type != "cuda":
-        raise ValueError(f"detect_events: unsupported device {dev}")
-    B = sig_off.shape[0] - 1
-    S_n = pa_pool.shape[0]
-    f64, f32, i32, i64 = torch.float64, torch.float32, torch.int32, \
-        torch.int64
-    s = torch.empty(S_n + B, dtype=f64, device=dev)
-    q = torch.empty(S_n + B, dtype=f64, device=dev)
-    max_len = int((sig_off[1:] - sig_off[:-1]).max()) if B else 0
-    t1 = torch.empty(_padded(S_n), dtype=f32, device=dev)
-    t2 = torch.empty(_padded(S_n), dtype=f32, device=dev)
-    bnd = torch.empty(S_n + 2 * B, dtype=i32, device=dev)
-    n_ev, fixed, rnd = (torch.empty(B, dtype=i32, device=dev)
-                        for _ in range(3))
-    lib = _build.library()
-    with _build.device_guard(dev):
-        stream = _build.stream_handle(dev)
-        span = _build.span_start(dev)
-        err = lib.f5c_events_detect(
-            pa_pool.data_ptr(), sig_off.data_ptr(), s.data_ptr(),
-            q.data_ptr(), t1.data_ptr(), t2.data_ptr(), bnd.data_ptr(),
-            n_ev.data_ptr(), fixed.data_ptr(), rnd.data_ptr(), B, int(rna),
-            peak_threads(max_len), stream)
-        _build.span_stop(span, dev)
-    _build.check_error(lib, "f5c_events_detect", err)
-    counts = torch.stack([n_ev, fixed, rnd]).cpu().numpy().astype(np.int64)
+    L = _Launch(pa_pool, sig_off, rna)
+    L.sums()
+    L.peaks()
+    counts = L.counts()
     fixed_reads["events"] += int(counts[1].sum())
     _count_rounds(counts[2])
-    ev_off_h = np.zeros(B + 1, np.int64)
-    np.cumsum(counts[0], out=ev_off_h[1:])
-    E = int(ev_off_h[-1])
-    ev_off = torch.from_numpy(ev_off_h).to(dev)
-    start = torch.empty(E, dtype=i64, device=dev)
-    length, mean, stdv = (torch.empty(E, dtype=f32, device=dev)
-                          for _ in range(3))
-    with _build.device_guard(dev):
-        span = _build.span_start(dev)
-        err = lib.f5c_events_assemble(
-            s.data_ptr(), q.data_ptr(), sig_off.data_ptr(), bnd.data_ptr(),
-            ev_off.data_ptr(), start.data_ptr(), length.data_ptr(),
-            mean.data_ptr(), stdv.data_ptr(), B, stream)
-        _build.span_stop(span, dev)
-    _build.check_error(lib, "f5c_events_assemble", err)
+    L.assemble()
     launches["events"] += 1
-    return ev_off, start, length, mean, stdv
+    return (L.ev_off, L.start, *L.out)
+
+
+def sums_tracks(pa_pool, sig_off, rna: bool = False):
+    """The prefix sums and tracks alone (the probe), in the kernels'
+    layout: (S f64 [S + B], Q, T1 f32 [S], T2, fixed i32 [B]); a CPU
+    tensor goes to their plain model ``sums_tracks_model``.  Not counted in
+    ``launches``: it is no part of the main path."""
+    if _device_of(pa_pool, sig_off, "sums_tracks").type == "cpu":
+        return sums_tracks_model(pa_pool, sig_off, rna)
+    L = _Launch(pa_pool, sig_off, rna)
+    L.sums()
+    return L.s, L.q, L.t1[:L.S_n], L.t2[:L.S_n], L.fixed
+
+
+def stages(pa_pool, sig_off, rna: bool = False) -> _Launch:
+    """One launch on CUDA tensors, run once through (not counted in
+    ``launches``), whose ``sums``, ``peaks`` and ``assemble`` then launch
+    each stage alone on the same scratch, for timing; ``n_tiles`` is the
+    sums' grid."""
+    if _device_of(pa_pool, sig_off, "stages").type != "cuda":
+        raise ValueError("stages: CUDA tensors only")
+    L = _Launch(pa_pool, sig_off, rna)
+    L.sums()
+    L.peaks()
+    L.counts()
+    L.assemble()
+    return L
 
 
 def _count_rounds(r: np.ndarray) -> None:

@@ -24,6 +24,14 @@ Layout, per read i of a batch of B: samples ``pa_pool[sig_off[i] :
 sig_off[i+1]]`` (f32 pA), no padding; events ``ev_off[i] .. ev_off[i+1]``
 of the outputs start (i64), length, mean, stdv (f32).  A read's events are
 at most its samples + 1, the bound the host detector sizes its buffers to.
+
+Beside the plain version, plain models of the kernels' own schedules,
+which the tests hold to it: the tiled prefix sums (``tile_table``,
+``prefix_sums_tiled``: the order of additions, the check at every sample
+and the sequential redo), the chunk-parallel peak scan
+(``peak_scan_chunked``) and the assembly's event-to-read search
+(``owner``, ``assemble_model``); ``detect_events_model`` runs them in the
+kernels' layout.
 """
 
 from __future__ import annotations
@@ -71,6 +79,146 @@ def prefix_sums(x: torch.Tensor):
     torch.cumsum(x.double(), 0, out=s[1:])
     torch.cumsum((x * x).double(), 0, out=q[1:])
     return s, q
+
+
+# The prefix sums of csrc/events.cu: a grid over the launch's tiles of
+# SUM_TILE samples (SUM_THREADS threads of SUM_ITEMS consecutive samples)
+SUM_THREADS = 256
+SUM_ITEMS = 16
+SUM_TILE = SUM_THREADS * SUM_ITEMS
+_WARPS = SUM_THREADS // 32
+
+
+def tile_table(lens) -> np.ndarray:
+    """The kernels' tile table: i64 [B+1], the exclusive prefix of each
+    read's tiles (ceil(n / SUM_TILE); none for an empty read).  Tile g of
+    the launch belongs to read ``owner(table, g)``, at its tile g -
+    table[b]."""
+    tiles = -(-np.asarray(lens, np.int64) // SUM_TILE)
+    off = np.zeros(tiles.shape[0] + 1, np.int64)
+    np.cumsum(tiles, out=off[1:])
+    return off
+
+
+def owner(off: np.ndarray, j: np.ndarray) -> np.ndarray:
+    """The kernels' binary search (csrc/events.cu ``owner_of``), for each
+    j in [off[0], off[B]): the largest b < B with off[b] <= j, the read
+    whose range [off[b], off[b+1]) holds j (``off`` non-decreasing, so
+    empty ranges are passed over)."""
+    j = np.asarray(j, np.int64)
+    lo = np.zeros(j.shape, np.int64)
+    hi = np.full(j.shape, off.shape[0] - 1, np.int64)
+    while True:
+        live = hi - lo > 1
+        if not live.any():
+            return lo
+        mid = (lo + hi) >> 1
+        up = live & (off[mid] <= j)
+        lo = np.where(up, mid, lo)
+        hi = np.where(live & ~up, mid, hi)
+
+
+def _warp_scan(v: np.ndarray) -> np.ndarray:
+    """Inclusive scan over the last axis (32 lanes) in the kernels' order:
+    Hillis-Steele steps of 1, 2, 4, 8, 16 lanes (``__shfl_up_sync``)."""
+    v = v.copy()
+    for off in (1, 2, 4, 8, 16):
+        nxt = v.copy()
+        nxt[..., off:] = v[..., :-off] + v[..., off:]
+        v = nxt
+    return v
+
+
+def carry_scan(tot: np.ndarray) -> np.ndarray:
+    """Exclusive scan of one read's tile totals (f64), as csrc/events.cu's
+    carry kernel runs it with one warp: rounds of 32 tiles, each a warp
+    scan, a running sum carried from round to round."""
+    carry = np.empty_like(tot)
+    run = np.float64(0.0)
+    for r in range(0, tot.shape[0], 32):
+        v = np.zeros(32)
+        k = min(32, tot.shape[0] - r)
+        v[:k] = tot[r:r + k]
+        inc = _warp_scan(v)
+        exc = np.concatenate([[0.0], inc[:-1]])
+        carry[r:r + k] = run + exc[:k]
+        run = run + inc[31]
+    return carry
+
+
+def _tiled(v: np.ndarray):
+    """The kernels' sums of one quantity (f64 [nt, SUM_THREADS,
+    SUM_ITEMS], zero past the read) in their order of additions: the
+    inclusive prefix a thread, tile totals (each thread's total, a warp
+    scan, the warps' totals in order), their carry scan, and the rescan
+    from the carry: carry + the earlier warps' totals, + the lane's
+    exclusive prefix in its warp, + the thread's own prefix.  Returns the
+    stored values, flat."""
+    nt = v.shape[0]
+    ls = np.empty_like(v)
+    a = np.zeros(v.shape[:2])
+    for j in range(SUM_ITEMS):
+        a = a + v[:, :, j]
+        ls[:, :, j] = a
+    inc = _warp_scan(a.reshape(nt, _WARPS, 32))
+    wtot = inc[:, :, 31]
+    tot = np.zeros(nt)
+    for w in range(_WARPS):
+        tot = tot + wtot[:, w]
+    base = np.empty((nt, _WARPS))
+    base[:, 0] = carry_scan(tot)
+    for w in range(1, _WARPS):
+        base[:, w] = base[:, w - 1] + wtot[:, w - 1]
+    exc = np.concatenate([np.zeros((nt, _WARPS, 1)), inc[:, :, :-1]], 2)
+    pa = (base[:, :, None] + exc).reshape(nt, SUM_THREADS, 1)
+    return (pa + ls).reshape(-1)
+
+
+def scan_order_sums(x: np.ndarray):
+    """The prefix sums (f64 [n+1] each) of f32 samples and of their f32
+    squares in csrc/events.cu's order of additions, before its check."""
+    n = x.shape[0]
+    nt = -(-n // SUM_TILE)
+    v = np.zeros(nt * SUM_TILE, np.float32)
+    v[:n] = x
+    v = v.reshape(nt, SUM_THREADS, SUM_ITEMS)
+    s = np.zeros(n + 1)
+    q = np.zeros(n + 1)
+    s[1:] = _tiled(v.astype(np.float64))[:n]
+    q[1:] = _tiled((v * v).astype(np.float64))[:n]
+    return s, q
+
+
+def first_failure(x: np.ndarray, s: np.ndarray, q: np.ndarray) -> int:
+    """The first sample i where the stored sums break their definition,
+    s[i+1] == s[i] + x_i or q[i+1] == q[i] + x_i * x_i (the square in
+    f32), or n; every sample is checked, a tile's first against the
+    previous tile's last stored value."""
+    xd = x.astype(np.float64)
+    sq = (x * x).astype(np.float64)
+    bad = np.flatnonzero((s[:-1] + xd != s[1:]) | (q[:-1] + sq != q[1:]))
+    return int(bad[0]) if bad.shape[0] else x.shape[0]
+
+
+def redo_from(x: np.ndarray, s: np.ndarray, q: np.ndarray, i: int) -> None:
+    """The kernels' redo: the sums from sample i on, in sample order from
+    s[i] and q[i] (torch's CPU cumsum is a sequential loop), in place."""
+    for out, v in ((s, x.astype(np.float64)),
+                   (q, (x * x).astype(np.float64))):
+        out[i:] = torch.cumsum(torch.from_numpy(
+            np.concatenate([out[i:i + 1], v[i:]])), 0).numpy()
+
+
+def prefix_sums_tiled(x: np.ndarray):
+    """The plain model of csrc/events.cu's prefix sums: (s, q, fixed).  The
+    tiled scan, the check at every sample, and where it fails the redo in
+    sample order from the first failure (fixed = 1): ``prefix_sums``' bits
+    on any input."""
+    s, q = scan_order_sums(x)
+    i = first_failure(x, s, q)
+    if i < x.shape[0]:
+        redo_from(x, s, q, i)
+    return s, q, int(i < x.shape[0])
 
 
 def tstat_track(s: torch.Tensor, q: torch.Tensor, n: int, w: int):
@@ -314,3 +462,72 @@ def detect_events_plain(pa_pool, sig_off, rna: bool):
         outs = [torch.zeros(0, dtype=torch.int64)] + [
             torch.zeros(0, dtype=torch.float32)] * 3
     return tuple(t.to(dev) for t in [torch.tensor(ev_off), *outs])
+
+
+def sums_tracks_model(pa_pool, sig_off, rna: bool):
+    """The plain model of csrc/events.cu's sums and tracks on a ragged
+    batch, in the kernels' layout (on the CPU): S and Q (f64 [S + B], read
+    b's n + 1 sums at sig_off[b] + b), T1 and T2 (f32 [S]) and fixed (i32
+    [B]: 1 where the read's sums were redone in sample order).  What
+    ``events_cuda.sums_tracks`` returns."""
+    pa = pa_pool.cpu().numpy()
+    off = sig_off.cpu().numpy()
+    B = off.shape[0] - 1
+    w1, w2 = detector_params(rna)[:2]
+    s_all = torch.zeros(pa.shape[0] + B, dtype=torch.float64)
+    q_all = torch.zeros(pa.shape[0] + B, dtype=torch.float64)
+    t1 = torch.zeros(pa.shape[0], dtype=torch.float32)
+    t2 = torch.zeros(pa.shape[0], dtype=torch.float32)
+    fixed = torch.zeros(B, dtype=torch.int32)
+    for b in range(B):
+        a, e = int(off[b]), int(off[b + 1])
+        s, q, fixed[b] = prefix_sums_tiled(pa[a:e])
+        s, q = torch.from_numpy(s), torch.from_numpy(q)
+        s_all[a + b:e + b + 1] = s
+        q_all[a + b:e + b + 1] = q
+        t1[a:e] = tstat_track(s, q, e - a, w1)
+        t2[a:e] = tstat_track(s, q, e - a, w2)
+    return s_all, q_all, t1, t2, fixed
+
+
+def assemble_model(s_all, q_all, sig_off, bnd_all, ev_off):
+    """The plain model of csrc/events.cu's assembly, one thread an event:
+    event j's read is ``owner(ev_off, j)``, its bounds at the read's slot
+    of the bounds slab (n + 2 entries at sig_off[b] + 2b), its sums at the
+    read's slot of S and Q.  Returns (start i64, length, mean, stdv f32)."""
+    off = sig_off.cpu().numpy()
+    eo = ev_off.cpu().numpy()
+    j = np.arange(int(eo[-1]))
+    b = owner(eo, j)
+    at = torch.from_numpy(off[b] + 2 * b + (j - eo[b]))
+    starts, ends = bnd_all[at].long(), bnd_all[at + 1].long()
+    base = torch.from_numpy(off[b] + b)
+    length = (ends - starts).float()
+    mean = (s_all[base + ends] - s_all[base + starts]).float() / length
+    dsq = (q_all[base + ends] - q_all[base + starts]).float()
+    var = dsq / length - mean * mean
+    stdv = sqrt_rn(torch.where(var > 0, var, torch.zeros_like(var)))
+    return starts, length, mean, stdv
+
+
+def detect_events_model(pa_pool, sig_off, rna: bool):
+    """The plain model of csrc/events.cu as a whole, in its layout: the
+    sums and tracks (``sums_tracks_model``), each read's peaks (the
+    sequential ``peak_scan``: the chunked scan's plain model is held to it
+    in tests/test_torch_events_chunked.py) into the bounds slab, the event
+    offsets, and ``assemble_model``.  Returns (ev_off i64 [B+1], start,
+    length, mean, stdv, fixed i32 [B]) on the CPU."""
+    s_all, q_all, t1, t2, fixed = sums_tracks_model(pa_pool, sig_off, rna)
+    off = sig_off.cpu().tolist()
+    bnd = torch.zeros(t1.shape[0] + 2 * (len(off) - 1), dtype=torch.int32)
+    ev_off = [0]
+    for b in range(len(off) - 1):
+        a, e = off[b], off[b + 1]
+        peaks = peak_scan(t1[a:e].tolist(), t2[a:e].tolist(), e - a, rna)
+        bounds = [0] + peaks + [e - a]
+        bnd[a + 2 * b:a + 2 * b + len(bounds)] = torch.tensor(
+            bounds, dtype=torch.int32)
+        ev_off.append(ev_off[-1] + len(bounds) - 1)
+    ev_off = torch.tensor(ev_off, dtype=torch.int64)
+    return (ev_off, *assemble_model(s_all, q_all, sig_off, bnd, ev_off),
+            fixed)

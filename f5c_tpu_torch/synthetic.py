@@ -312,6 +312,30 @@ def event_signals(rng, model, rna_model=None) -> dict:
     return out
 
 
+def simulated_pa(rng, model, n: int) -> np.ndarray:
+    """A pA signal of exactly ``n`` samples: random k-mers dwelling 6-12
+    samples around the model's levels, noise 1.2 pA (as event_signals)."""
+    m = n // 6 + 1
+    dwell = rng.integers(6, 13, m)
+    levels = model.level_mean[rng.integers(0, model.level_mean.shape[0], m)]
+    mean = np.repeat(levels.astype(np.float64), dwell)[:n]
+    return rng.normal(mean, 1.2).astype(np.float32)
+
+
+def carry_join_signal(tile: int) -> np.ndarray:
+    """A signal whose prefix sums, taken tile by tile as csrc/events.cu
+    takes them, round only where a tile's carry joins: a tile of 1024.0
+    (its sums 2^22 and 2^32, exact in any order), then two tiles of
+    2^-41.  Added one at a time (in sample order, or onto a thread's or a
+    warp's prefix) each rounds away against 2^22, so every sum within the
+    second tile stays 2^22; but that tile's total, 2^-29, does not, and
+    the third tile's carry, 2^22 + 2^-29, disagrees with the second
+    tile's last sum at the third tile's first sample, sample 2 * tile.
+    (The squares, 2^-82, never reach 2^32.)"""
+    return np.concatenate([np.full(tile, 1024.0, np.float32),
+                           np.full(2 * tile, 2.0 ** -41, np.float32)])
+
+
 def peak_tracks(rng) -> list[dict]:
     """Adversarial t-stat tracks for the chunk-parallel peak scan, each
     {"name", "t1", "t2" (f32), "rna"}: all zeros; a slow ramp that never

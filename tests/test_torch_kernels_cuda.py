@@ -13,7 +13,10 @@ pytest tests/test_torch_kernels_cuda.py``; the windowed ABEA kernels of
 csrc/abea_ultra.cu are held to the same bits, and the event detector and
 the chunk Viterbi to their plain versions and the host code bit for bit,
 and the event detector's peak scan alone (the probe) to the sequential
-scan and its plain model's rounds.
+scan and its plain model's rounds, its sums and tracks alone (their probe)
+to their plain model, on a read of 2.75 M samples, at the sample budget,
+on reads of 0, 1 and 5 samples and where the sums round (a refused launch
+raises).
 """
 
 import numpy as np
@@ -321,6 +324,139 @@ def test_events_peak_probe_matches_model(cuda, chunk):
                 x["rna"])
 
 
+def _same_events(got, want) -> bool:
+    """Equal bit for bit, but that a NaN (the mean of an empty read's
+    event, 0 / 0) matches any NaN: the card's and the host's NaNs differ
+    in their bits."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype.kind != "f":
+        return np.array_equal(got, want)
+    nan = np.isnan(got)
+    return (np.array_equal(nan, np.isnan(want))
+            and got[~nan].tobytes() == want[~nan].tobytes())
+
+
+def _hold_events(cuda, pas, rna, fixed, plain=True):
+    """K9's sums and tracks (the probe events_cuda.sums_tracks) and its
+    events (detect_events) on one launch of the signals ``pas``, held bit
+    for bit to the plain model (sums_tracks_model, with its ``fixed``, and
+    detect_events_model, unless ``plain`` is False) and read by read to
+    native.detect_events; fixed_reads counts the reads given as
+    ``fixed``.  Returns the launch's tile count."""
+    from f5c_tpu_torch import native
+    from f5c_tpu_torch.ops import events_cuda, events_device
+
+    off = np.zeros(len(pas) + 1, np.int64)
+    np.cumsum([p.shape[0] for p in pas], out=off[1:])
+    pa, so = torch.from_numpy(np.concatenate(pas)), torch.from_numpy(off)
+    got = events_cuda.sums_tracks(pa.to(cuda), so.to(cuda), rna)
+    want = events_device.sums_tracks_model(pa, so, rna)
+    torch.cuda.synchronize()
+    assert want[4].tolist() == fixed
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    before = events_cuda.fixed_reads["events"]
+    ev = [t.cpu() for t in events_cuda.detect_events(pa.to(cuda),
+                                                     so.to(cuda), rna)]
+    assert events_cuda.fixed_reads["events"] - before == sum(fixed)
+    if plain:
+        for g, w in zip(ev, events_device.detect_events_model(pa, so, rna)):
+            assert _same_events(g.numpy(), w.numpy())
+    eo = ev[0].numpy()
+    for i, p in enumerate(pas):
+        et = native.detect_events(p, rna=rna)
+        a, b = eo[i], eo[i + 1]
+        for g, w in zip(ev[1:], (et.start, et.length, et.mean, et.stdv)):
+            assert _same_events(g[a:b].numpy(), w)
+    return int(events_device.tile_table(np.diff(off))[-1])
+
+
+def test_events_sums_on_a_long_read(cuda):
+    """One read of 2.75 M samples: the sums on its 672 tiles (at least a
+    block an SM) bit for bit the model's and the host's, its events
+    native's."""
+    rng = np.random.default_rng(61)
+    p = synthetic.simulated_pa(rng, builtin_model("dna_r9_nucleotide"),
+                               2_750_000)
+    tiles = _hold_events(cuda, [p], False, [0])
+    assert tiles >= torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+
+
+def test_events_sums_redo_where_they_round(cuda):
+    """The tiny-value signal (its sums round within a tile), the
+    carry-join signal (only where the third tile's carry joins) and a
+    real read between them: the first two redone on the card (fixed_reads
+    counts them), every sum and event the host's."""
+    from f5c_tpu_torch import datasets
+    from f5c_tpu_torch.io.slow5 import Slow5File
+    from f5c_tpu_torch.ops import events_device
+
+    sig = synthetic.event_signals(np.random.default_rng(2031),
+                                  builtin_model("dna_r9_nucleotide"))
+    golden = Slow5File(datasets.GOLDEN_SIGNALS_ZLIB)
+    pas = [sig["dna"][4], golden.get(golden.read_ids()[0]).to_pa(),
+           synthetic.carry_join_signal(events_device.SUM_TILE)]
+    _hold_events(cuda, pas, False, [1, 0, 1])
+
+
+def test_events_kernels_mixed_batch(cuda):
+    """Reads of 0, 1 and 5 samples among golden reads and a read of one
+    tile and one sample, DNA, then the RNA signal beside them."""
+    from f5c_tpu_torch import datasets
+    from f5c_tpu_torch.io.slow5 import Slow5File
+    from f5c_tpu_torch.ops import events_device
+
+    rng = np.random.default_rng(62)
+    nuc = builtin_model("dna_r9_nucleotide")
+    f = Slow5File(datasets.GOLDEN_SIGNALS_ZLIB)
+    golden = [f.get(r).to_pa() for r in f.read_ids()]
+    short = [synthetic.simulated_pa(rng, nuc, n) for n in (0, 1, 5)]
+    one_more = synthetic.simulated_pa(rng, nuc, events_device.SUM_TILE + 1)
+    pas = [short[0], golden[0], short[1], short[0], golden[1], short[2],
+           one_more, short[0]]
+    _hold_events(cuda, pas, False, [0] * len(pas))
+    sig = synthetic.event_signals(rng, nuc, builtin_model("rna_r9_nucleotide"))
+    _hold_events(cuda, [short[0]] + sig["rna"] + short[1:], True, [0] * 4)
+
+
+def test_events_kernels_at_the_sample_budget(cuda):
+    """A launch of SAMPLE_BUDGET samples (reads of 2 k to 400 k samples,
+    8,192 tiles): the sums and tracks the model's, the events native's."""
+    from f5c_tpu_torch.ops import events_cuda
+
+    rng = np.random.default_rng(63)
+    nuc = builtin_model("dna_r9_nucleotide")
+    lens, left = [], events_cuda.SAMPLE_BUDGET
+    while left > 0:
+        lens.append(min(left, int(rng.integers(2_000, 400_000))))
+        left -= lens[-1]
+    pas = [synthetic.simulated_pa(rng, nuc, n) for n in lens]
+    tiles = _hold_events(cuda, pas, False, [0] * len(pas), plain=False)
+    assert tiles >= events_cuda.SAMPLE_BUDGET // 4096
+
+
+def test_events_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses (a peak-scan block of 2,048 threads)
+    raises with its CUDA error; the next call runs and is right."""
+    from f5c_tpu_torch.ops import events_cuda, events_device
+
+    x = synthetic.simulated_pa(np.random.default_rng(64),
+                               builtin_model("dna_r9_nucleotide"), 20_000)
+    pa = torch.from_numpy(x).to(cuda)
+    so = torch.tensor([0, x.shape[0]], device=cuda)
+    monkeypatch.setattr(events_cuda, "peak_threads", lambda n: 2048)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        events_cuda.detect_events(pa, so, False)
+    monkeypatch.undo()
+    got = events_cuda.detect_events(pa, so, False)
+    for g, w in zip(got, events_device.detect_events_plain(pa.cpu(), so.cpu(),
+                                                          False)):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("table_cap", [None, 1])
 @pytest.mark.parametrize("case", ["mixed", "edges", "edges_tiled", "k9",
                                   "far"])
@@ -461,6 +597,7 @@ def test_wrappers_launch_on_their_tensors_device(cuda):
         ranks = hmm_cuda.hmm_window_ranks(t["meta"], t["packed_ref"],
                                           t["read_tab"], m["k"], m["max_km"])
         ev = events_cuda.detect_events(slab, so, False)
+        sums = events_cuda.sums_tracks(slab, so, False)
         peaks = events_cuda.peaks_from_tracks(
             *(a.to(dev0) for a in pk_args), pk["rna"])
         vit = viterbi_cuda.viterbi_rounds(*vit_args)
@@ -487,6 +624,8 @@ def test_wrappers_launch_on_their_tensors_device(cuda):
         kw=m["max_km"])[0])
     for g, w in zip(ev, events_device.detect_events_plain(slab, so, False)):
         assert torch.equal(g, w)
+    for g, w in zip(sums, events_device.sums_tracks_model(slab, so, False)):
+        assert torch.equal(g.cpu(), w)
     want_peaks = events_cuda.peaks_from_tracks(*pk_args, pk["rna"])
     assert peaks[0] == want_peaks[0]
     assert np.array_equal(peaks[1], want_peaks[1])
