@@ -63,10 +63,13 @@ Phases (each prints one line; any failure raises and exits nonzero):
    warp-steps, and the time of the unfused input assembly build_inputs
    that the kernel replaces);
 6. ultra run: 4 synthetic reads of 100-300 kb (datasets.ultra_dataset)
-   through call-methylation and eventalign at the default settings, where
-   every read takes the windowed ABEA, and again with the trace budget
-   raised so that none does: per read the same walk bit for bit, the same
-   output files; walls, peak device memory, windows per read; the window
+   through call-methylation and eventalign with the trace budget lowered
+   (a share of datasets.ULTRA_WINDOWED_SHARE bands a read), where every
+   read takes the windowed ABEA, and again at the default settings, where
+   the 2-bit trace keeps every read on the unchunked ABEA (no window
+   kernel launches): per read the same walk bit for bit, the same output
+   files; walls, peak device memory, windows per read, the trace's bytes
+   a band, the default share and each read's bands; the window
    kernels held bit for bit to their plain versions, and timed, at two
    windows of the windowed run (the last one, from band ~786k, and a full
    one of 65,536 bands x 4 reads), and the HMM launches of that run held
@@ -74,7 +77,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
    plain version on the 4 reads and timed (its peak kernel also alone);
    windowed call-methylation once more with device events: its peak
    device memory (K9's scratch) and the bytes of the host-events run;
-   the unchunked kernels timed;
+   the unchunked kernels timed, and the unchunked fill's trace rows at
+   those two windows held byte for byte to the plain re-fills';
 7. pores: the synthetic R10 set (4 reads, full-size 9-mer tables:
    f5c_tpu_torch.synthetic.r10_models / r10_dataset) through
    call-methylation and eventalign --summary with the native and the
@@ -767,15 +771,40 @@ class WalkRecorder:
         self._cls._postalign_qc_one = self._orig
 
 
-def time_unchunked_kernels(torch, calls) -> dict:
+def time_unchunked_kernels(torch, calls, plain_fills, win: int) -> dict:
     """The unchunked ABEA kernels of an ultra run, timed at its shapes
-    (ms)."""
+    (ms), and the fill's packed trace rows and llk held byte for byte, at
+    the windows of ``plain_fills`` ({tag: (base, the plain re-fill's
+    outputs on the host)}, from the windowed run: hold_windows), to the
+    plain re-fill's rows of the same reads (matched by their k-mer
+    counts)."""
+    import numpy as np
+
     from f5c_tpu_torch.ops import abea_cuda
 
     fill, walk = calls["abea_fill"][0][0], calls["abea_walk"][0][0]
+    trace, llk, _ = abea_cuda.abea_fill(*fill)
+    band_off = fill[11].cpu().numpy()
+    rk_len = fill[5].cpu().numpy()
+    e, rows_held = 0, 0
+    for base, (_, p_tr, p_llk), p_rk in plain_fills.values():
+        for j, nk in enumerate(p_rk):
+            [i] = np.nonzero(rk_len == nk)[0]
+            rows = int(min(band_off[i + 1] - band_off[i] - base, win))
+            if rows <= 0:
+                continue
+            b = int(band_off[i]) + base
+            e = max(e, _int_err((trace[b:b + rows].cpu(),
+                                 llk[b:b + rows].cpu()),
+                                (p_tr[j, :rows], p_llk[j, :rows])))
+            rows_held += rows
+    if e or not rows_held:
+        raise AssertionError("ultra: the unchunked fill's trace differs "
+                             f"from the plain re-fill's ({e})")
     return dict(
         fill_unchunked=time_ms(torch, lambda: abea_cuda.abea_fill(*fill), 1),
-        walk_unchunked=time_ms(torch, lambda: abea_cuda.abea_walk(*walk), 1))
+        walk_unchunked=time_ms(torch, lambda: abea_cuda.abea_walk(*walk), 1),
+        fill_unchunked_rows_held=rows_held)
 
 
 def hold_windows(torch, calls, win: int, picks: dict):
@@ -916,22 +945,34 @@ def mixed_long_short(torch, dev):
     return err, info
 
 
+def ultra_budget(runner, datasets) -> int:
+    """The trace budget under which every ultra read takes the windowed
+    ABEA: a share of datasets.ULTRA_WINDOWED_SHARE bands a read."""
+    from f5c_tpu_torch.ops.abea import TRACE_ROW_BYTES
+
+    return (runner.Pipeline.WAVE * (TRACE_ROW_BYTES + 4)
+            * datasets.ULTRA_WINDOWED_SHARE)
+
+
 def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                 reset_counts, read_counts):
     """Phase 6.  Returns the launch counts of the windowed
-    call-methylation run, the main path of the window kernels, and the
-    window kernels' errors and (ms, plain_ms) at that run's shapes."""
+    call-methylation run (the budget lowered), the main path of the
+    window kernels, and the window kernels' errors and (ms, plain_ms) at
+    that run's shapes."""
     import filecmp
 
     from f5c_tpu_torch.ops import abea_ultra
+    from f5c_tpu_torch.ops.abea import TRACE_ROW_BYTES
 
     data = datasets.ultra_dataset(os.path.join(tmp, "ultra"), seed=2026)
     win = runner.Pipeline.WIN_BANDS
     budget = runner.Pipeline.TRACE_BYTES_BUDGET
     runs, kernel_ms = {}, {}
     for mode in ("windowed", "unchunked"):
-        if mode == "unchunked":
-            runner.Pipeline.TRACE_BYTES_BUDGET = 1 << 50  # nothing windowed
+        if mode == "windowed":
+            runner.Pipeline.TRACE_BYTES_BUDGET = ultra_budget(runner,
+                                                              datasets)
         try:
             # warm-up with the kernel calls recorded: each ABEA kernel
             # held to its plain version and timed at these shapes, then
@@ -943,13 +984,26 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                         extra=DEVICE_EVENTS)
             finally:
                 spy.close()
+            # all four reads in the window launches, or none
+            win_reads = {a[2].shape[0] for a, _ in
+                         spy.calls["abea_fill_window"]}
+            if win_reads != ({4} if mode == "windowed" else set()):
+                raise AssertionError(f"ultra {mode}: window launches of "
+                                     f"{sorted(win_reads)} reads")
             if mode == "windowed":
                 nb = (spy.calls["abea_fill_window"][0][0][11].diff()
                       .min().item())
-                err, timings, info, _ = hold_windows(
+                err, timings, info, plain_fills = hold_windows(
                     torch, spy.calls, win,
                     {"last": len(spy.calls["abea_walk_window"]) - 1,
                      "full": (nb - 2) // win - 1})
+                # kept on the host, with the reads' k-mer counts, for
+                # the unchunked fill's hold
+                rk = spy.calls["abea_fill_window"][0][0][5].cpu().numpy()
+                plain_fills = {
+                    tag: (base, [None if t is None else t.cpu()
+                                 for t in want], rk)
+                    for tag, (base, want) in plain_fills.items()}
                 timings = timings["full"]
                 kernel_ms.update(info)
                 err.update(compare_launches(
@@ -958,7 +1012,8 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                                  hmm_max_abs_err=err["hmm_forward"])
                 kernel_ms.update(hold_ultra_events(torch, spy.calls["events"]))
             else:
-                kernel_ms.update(time_unchunked_kernels(torch, spy.calls))
+                kernel_ms.update(time_unchunked_kernels(
+                    torch, spy.calls, plain_fills, win))
             del spy
             entries = [("meth", ()), ("eventalign", ())]
             if mode == "windowed":
@@ -1002,6 +1057,11 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
         q: abea_ultra.n_windows(w[3], win) for q, w in sorted(walks.items())},
         bands={q: w[3] for q, w in sorted(walks.items())},
         walk_steps={q: w[0] for q, w in sorted(walks.items())})
+    share = budget // (runner.Pipeline.WAVE * (TRACE_ROW_BYTES + 4))
+    say("trace_layout", trace_row_bytes=TRACE_ROW_BYTES,
+        default_share_bands=share,
+        forced_share_bands=datasets.ULTRA_WINDOWED_SHARE,
+        ultra_bands={q: w[3] for q, w in sorted(walks.items())})
     say("ultra_kernels", card=card.replace(" ", "_"),
         **{k: (f"{v:.3f}" if isinstance(v, float) else v)
            for k, v in kernel_ms.items()})
@@ -1737,7 +1797,7 @@ def roofline(nbytes: float, ops: float, f64_ops: float = 0):
 def bound_of(name: str, args, kw, out):
     """The roofline bound of one kernel call from its inputs and outputs:
     every input read once and every output written once (for the walks,
-    the trace bytes and llk words of the steps taken), and the f32
+    the 2-bit trace cells and llk words of the steps taken), and the f32
     operations of the cells computed."""
     if name == "abea_fill":
         cells = args[12] * 100
@@ -1746,8 +1806,9 @@ def bound_of(name: str, args, kw, out):
         # the packed bases in (0.25 B a base), a rank out (4 B a base)
         return roofline(_nbytes(*args[:3], out), 0)
     if name == "abea_walk":
+        # a step reads its cell's 2 bits of the trace and its band's llk
         steps = int(out[1].long().sum())
-        return roofline(5 * steps + _nbytes(*args[2:6], *out), 0)
+        return roofline(4.25 * steps + _nbytes(*args[2:6], *out), 0)
     if name == "hmm_forward":
         return roofline(_nbytes(*args[:7], out),
                         hmm_shape(args, kw)["cells"] * HMM_CELL_OPS)
@@ -1768,8 +1829,8 @@ def bound_of(name: str, args, kw, out):
                         bands * 100 * ABEA_CELL_OPS)
     if name == "abea_walk_window":
         steps = int((out[0][:, 2] - args[3][:, 2]).long().sum())
-        return roofline(5 * steps + -(-steps // 4) + 2 * _nbytes(args[3]),
-                        0)
+        return roofline(4.25 * steps + -(-steps // 4)
+                        + 2 * _nbytes(args[3]), 0)
     if name == "events":
         samples, events = args[0].numel(), out[1].numel()
         return roofline(_nbytes(args[0], args[1], *out),
@@ -1934,9 +1995,11 @@ def profile_runs(torch, card, runner, datasets, reps: int = 3) -> None:
                     mode="golden_x85", entry="eventalign")
         data = datasets.ultra_dataset(os.path.join(tmp, "ultra"), seed=2026)
         budget = runner.Pipeline.TRACE_BYTES_BUDGET
+        # windowed: the budget lowered; unchunked: the defaults
         for mode in ("windowed", "unchunked"):
-            if mode == "unchunked":
-                runner.Pipeline.TRACE_BYTES_BUDGET = 1 << 50
+            if mode == "windowed":
+                runner.Pipeline.TRACE_BYTES_BUDGET = ultra_budget(runner,
+                                                                  datasets)
             try:
                 for cmd in ("meth", "eventalign"):
                     out = os.path.join(tmp, f"{mode}_{cmd}.tsv")

@@ -53,6 +53,24 @@ constexpr int LL_K0 = -1 - HALF;          // band 0's lower-left k-mer
 constexpr int START_OFF = -1 - LL_K0;     // offset of cells (-1,-1), (-1,0)
 constexpr float LOG_INV_SQRT_2PI = -0.918938f;
 
+// The trace: 2 bits a band cell, TRACE_ROW bytes a band (ops/abea.py
+// TRACE_ROW_BYTES, pack_trace).  A row is one uint2 for each warp of the
+// block: .x holds bit 0 and .y bit 1 of the direction of cell o at bit
+// o & 31 of uint2 o >> 5.
+constexpr int TRACE_ROW = PAD / 4;
+static_assert(TRACE_ROW % 16 == 0, "rows stay 16-byte aligned");
+
+// Stores the band's directions (thread o's `frm`) as the trace row at
+// `row`: two ballots a warp, and lane 0 of each warp stores its 8 bytes.
+// Every thread of the block calls it, in a converged region.
+__device__ __forceinline__ void store_trace_row(uint8_t* row, int o,
+                                                int frm) {
+  const unsigned lo = __ballot_sync(~0u, frm & 1);
+  const unsigned hi = __ballot_sync(~0u, frm >> 1);
+  if ((o & 31) == 0)
+    reinterpret_cast<uint2*>(row)[o >> 5] = make_uint2(lo, hi);
+}
+
 // Staging (ops/abea.py FILL_TILE, fill_ring_slots, fill_smem_bytes).
 constexpr int FILL_TILE = 128;
 constexpr int RING = 512;                 // >= 2 * FILL_TILE + BW

@@ -11,10 +11,13 @@
 // them are f5c_tpu_torch/ops/abea_ultra.py.  Algorithm reference:
 // align.c:180-559.
 //
-// Why the path exists: the unchunked fill (abea.cu) stores one trace byte
-// per band cell, n_bands x 128 bytes per read -- ~110 MB for a 300 kb
-// read.  Here a read's trace is rebuilt one window of WIN bands at a time
-// (O(WIN) memory), at the cost of a second fill.
+// Why the path exists: the unchunked fill (abea.cu) keeps a read's whole
+// trace, 2 bits a band cell: n_bands x (32 + 4) bytes with the band's
+// lower-left k-mer -- ~29 MB for a 300 kb read of ~811,000 bands, and
+// without bound as reads grow.  Here a read's trace is rebuilt one window
+// of WIN bands at a time (O(WIN) memory), at the cost of a second fill;
+// the runner sends a read here only past its share of the trace budget
+// (~868,000 bands, a ~320 kb read, at the defaults).
 //
 // abea_fill_window_kernel: one block per read (a ragged grid over the
 // batch's ultra reads), 128 threads, three band rows in shared memory,
@@ -28,7 +31,8 @@
 // checkpoint of every window and, in the last one, the backtrace start);
 // the backward pass re-fills one window from its checkpoint with the
 // trace on.  Bands at or past the read's end are not run: the state
-// stays, and the trace rows there are 0.
+// stays, and the trace rows there are 0.  The trace rows are written as
+// abea.cu's (store_trace_row).
 // What bounds it: as for the unchunked fill, the band recurrence -- each
 // band needs the previous band's edge cells, so a read is a chain of
 // dependent steps: latency.  An ultra batch holds few reads, so few SMs
@@ -41,9 +45,9 @@
 // offset 2n -- abea_walk.cuh's walk, shared with the unchunked walk.  A
 // window's walk rarely ends on a multiple of 4 steps: the next window's
 // walk starts by loading that partial byte and ORs on.
-// What bounds it: each step's two dependent loads (the band's ll_k, then
-// the trace byte), from the staged tiles in shared memory; serial per
-// read.
+// What bounds it: each step's dependent load of the trace row's 8 bytes
+// that hold its cell (the band's ll_k is loaded a step ahead), from the
+// staged tiles in shared memory; serial per read.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,6 +60,9 @@ namespace {
 
 using namespace f5c_abea;
 
+// kTrace: the backward pass's re-fill, which writes the trace and llk; the
+// forward pass is the instance without (no branch around the ballots).
+template <bool kTrace>
 __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
     const float* __restrict__ ev_pool, const int64_t* __restrict__ ev_off,
     const int32_t* __restrict__ ev_len, const uint8_t* __restrict__ seq,
@@ -76,8 +83,8 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
   const Model m{level_mean, level_stdv, level_log_stdv, n_model};
   const int nb = static_cast<int>(band_off[i + 1] - band_off[i]);
   const int64_t span = static_cast<int64_t>(n_win) * win;
-  uint8_t* tr = trace ? trace + i * span * PAD : nullptr;
-  int32_t* llk = llk_out ? llk_out + i * span : nullptr;
+  uint8_t* tr = kTrace ? trace + i * span * TRACE_ROW : nullptr;
+  int32_t* llk = kTrace ? llk_out + i * span : nullptr;
 
   const float* st_in = state_in + static_cast<int64_t>(i) * ST_WORDS;
   rows[(base - 1) % 3][o] = st_in[ST_PREV + o];
@@ -99,17 +106,21 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
     const int hi = lo + win;
     run_bands(rows, next, hi < nb ? hi : nb, o, rd, m, st, s, c, left,
               [&](int b, int frm) {
-                if (tr) {
-                  tr[static_cast<int64_t>(b - base) * PAD + o] =
-                      static_cast<uint8_t>(frm);
+                if (kTrace) {
+                  store_trace_row(
+                      tr + static_cast<int64_t>(b - base) * TRACE_ROW, o,
+                      frm);
                   if (o == 0) llk[b - base] = s.ll_k;
                 }
               });
-    if (tr) {
-      for (int b = (lo > nb ? lo : nb); b < hi; ++b) {
-        tr[static_cast<int64_t>(b - base) * PAD + o] = 0;
-        if (o == 0) llk[b - base] = 0;
-      }
+    const int z0 = lo > nb ? lo : nb;  // the bands past the read's end
+    if (kTrace && z0 < hi) {            // get zero rows
+      uint4* zr = reinterpret_cast<uint4*>(
+          tr + static_cast<int64_t>(z0 - base) * TRACE_ROW);
+      const int64_t n16 =
+          static_cast<int64_t>(hi - z0) * (TRACE_ROW / 16);
+      for (int64_t j = o; j < n16; j += PAD) zr[j] = make_uint4(0, 0, 0, 0);
+      for (int b = z0 + o; b < hi; b += PAD) llk[b - base] = 0;
     }
     reduce_best(o, st, s, c);
     float* so = state_out + (static_cast<int64_t>(i) * n_win + j) * ST_WORDS;
@@ -132,7 +143,7 @@ __global__ void __launch_bounds__(32) abea_walk_window_kernel(
   const int i = blockIdx.x;
   const int lane = threadIdx.x;
   int k = kst[3 * i], e = kst[3 * i + 1], n = kst[3 * i + 2];
-  walk_tiles(trace + static_cast<int64_t>(i) * win * PAD,
+  walk_tiles(trace + static_cast<int64_t>(i) * win * TRACE_ROW,
              llk_all + static_cast<int64_t>(i) * win, win, base, k, e, n,
              out + byte_off[i], byte_off[i + 1] - byte_off[i], smem, lane);
   if (lane == 0) {
@@ -147,10 +158,11 @@ __global__ void __launch_bounds__(32) abea_walk_window_kernel(
 extern "C" {
 
 // Launches the windowed fill on `stream`; allocates nothing; returns
-// cudaGetLastError() after the launch.  `trace` and `llk` may be null
-// (no trace: the forward pass).  `smem_bytes` is the block's dynamic
-// shared memory as the wrapper sizes it (ops/abea.py fill_smem_bytes,
-// walk_smem_bytes); a size other than the kernel's layout is refused.
+// cudaGetLastError() after the launch.  `trace` and `llk` are both null
+// (no trace: the forward pass) or both set.  `smem_bytes` is the block's
+// dynamic shared memory as the wrapper sizes it (ops/abea.py
+// fill_smem_bytes, walk_smem_bytes); a size other than the kernel's
+// layout is refused.
 // `seq`, `seq_off` and `kmer` as for f5c_abea_fill (abea.cu).
 int f5c_abea_fill_window(
     const void* ev_pool, const void* ev_off, const void* ev_len,
@@ -161,11 +173,13 @@ int f5c_abea_fill_window(
     int kmer, int n_model, int n_reads, int base, int win, int n_win,
     int smem_bytes, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
-  if (smem_bytes != FILL_SMEM || kmer < 1 || kmer > 15)
+  if (smem_bytes != FILL_SMEM || kmer < 1 || kmer > 15 ||
+      (trace == nullptr) != (llk == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_reads > 0) {
-    abea_fill_window_kernel<<<n_reads, PAD, smem_bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = trace ? abea_fill_window_kernel<true>
+                        : abea_fill_window_kernel<false>;
+    kernel<<<n_reads, PAD, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ev_pool),
         static_cast<const int64_t*>(ev_off),
         static_cast<const int32_t*>(ev_len),

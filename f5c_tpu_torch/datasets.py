@@ -137,6 +137,12 @@ def _revcomp(s: str) -> str:
     return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
 
 
+# a routing share (bands a read) under every read of ultra_dataset: a
+# TRACE_BYTES_BUDGET of WAVE x 36 B x this sends all four to the windowed
+# path
+ULTRA_WINDOWED_SHARE = 200_000
+
+
 def ultra_dataset(dst: str, seed: int = 2026, scale: float = 1.0) -> dict:
     """Write a seeded synthetic dataset of ultra-long R9 DNA reads into
     ``dst`` (BAM, genome FASTA, reads FASTA, zlib BLOW5), indexed.
@@ -145,8 +151,12 @@ def ultra_dataset(dst: str, seed: int = 2026, scale: float = 1.0) -> dict:
     forward and exact, ul150 reverse strand, ul200 forward with 40-base
     soft clips at both ends, a 25-base insertion and a 35-base deletion,
     ul300 forward with 1 % mismatches -- about 0.75 M k-mers and 6.8 M
-    samples.  At ~1.7 events per base each read's unchunked trace is over
-    the default routing share (Pipeline._takes_window_path).  ``scale``
+    samples.  At ~1.7 events per base (2.70 bands a base) the reads have
+    270,240 to 811,435 bands, under the default routing share of 868,055
+    (Pipeline._takes_window_path): at the defaults every read takes the
+    unchunked fill, and a TRACE_BYTES_BUDGET whose share is under
+    270,240 bands (ULTRA_WINDOWED_SHARE) sends all four to the windowed
+    path.  ``scale``
     shrinks the genome and the reads (not the clips and indels), for runs
     of the plain versions on the host."""
     rng = np.random.default_rng(seed)

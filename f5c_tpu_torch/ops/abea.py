@@ -19,10 +19,16 @@ a common length):
   at ``rk_off = seq_off`` (``abea_fill_packed_plain``);
 - ``params[i]`` = (scale, shift, lp_stay, lp_step, lp_skip, lp_trim) f32;
 - bands ``band_off[i] .. band_off[i+1]``, n_bands = n_events + n_kmers + 2.
-  ``trace[band_off[i] + bi, o]`` (u8) is the direction of the cell at
-  band offset o of band bi: k-mer ``llk[band_off[i] + bi] + o``, event
-  ``bi - 2 - llk[...] - o`` (0 = step/diag, 1 = stay/up, 2 = skip/left;
-  0 outside the band);
+  Row ``band_off[i] + bi`` of ``trace`` (u8 [n_bands, TRACE_ROW_BYTES])
+  holds the directions of band bi's PAD cells, 2 bits a cell (0 =
+  step/diag, 1 = stay/up, 2 = skip/left; 0 outside the band).  Cell o
+  is k-mer ``llk[band_off[i] + bi] + o``, event ``bi - 2 - llk[...] - o``.
+  A row is four 8-byte groups, one for each warp of the fill's 128
+  threads: group ``o >> 5`` is two little-endian u32 words, the first
+  holding bit 0 and the second bit 1 of the direction of cell o at bit
+  ``o & 31`` (what ``__ballot_sync`` over a warp's 32 cells gives).
+  ``pack_trace`` / ``unpack_trace`` convert from and to one byte a cell;
+  the JAX fill packs its trace to 2 bits too (by quads of bands);
 - ``start_e[i]``: the backtrace's first event (-1 when none);
 - the walk's 2-bit directions, 4 per byte with the first step in the low
   bits, at ``flat[byte_off[i] : byte_off[i+1]]`` (capacity
@@ -40,13 +46,50 @@ from .seq_ranks import ranks_from_packed
 
 # f5c_tpu/ops/abea.py:40-46
 BW = ALN_BANDWIDTH           # 100 active band offsets
-PAD = 128                    # band row width of the trace (one CUDA block)
+PAD = 128                    # cells a band row holds (one CUDA block)
 FROM_D, FROM_U, FROM_L = 0, 1, 2
 LOG_INV_SQRT_2PI = float(np.float32(-0.918938))
 NEG_INF = float("-inf")
 HALF = BW // 2
 LL_K0 = -1 - HALF            # band 0's lower-left k-mer (-51)
 START_OFF = -1 - LL_K0       # band offset of cells (k=-1, e=-1) and (-1, 0)
+
+
+TRACE_ROW_BYTES = PAD // 4   # a band's trace row: 2 bits a cell
+
+
+def pack_trace(dirs: torch.Tensor) -> torch.Tensor:
+    """Directions u8 [..., PAD] (0, 1 or 2 a cell) -> the packed trace
+    rows u8 [..., TRACE_ROW_BYTES] of the layout above: byte
+    8w + 4p + j holds bit p of cells 32w + 8j .. 32w + 8j + 7, the first
+    in the low bit."""
+    lead = dirs.shape[:-1]
+    d = dirs.reshape(*lead, 4, 4, 8).to(torch.int32)   # warp, byte, bit
+    w = 1 << torch.arange(8, dtype=torch.int32, device=dirs.device)
+    planes = torch.stack([((d & 1) * w).sum(-1), ((d >> 1) * w).sum(-1)],
+                         dim=-2)                       # warp, plane, byte
+    return planes.to(torch.uint8).reshape(*lead, TRACE_ROW_BYTES)
+
+
+def unpack_trace(rows: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_trace``: u8 [..., PAD] directions."""
+    lead = rows.shape[:-1]
+    b = rows.reshape(*lead, 4, 2, 4, 1).to(torch.int32)
+    bits = (b >> torch.arange(8, dtype=torch.int32, device=rows.device)) & 1
+    d = bits[..., 0, :, :] | (bits[..., 1, :, :] << 1)
+    return d.to(torch.uint8).reshape(*lead, PAD)
+
+
+def trace_cell(rows: torch.Tensor, row: torch.Tensor,
+               o: torch.Tensor) -> torch.Tensor:
+    """The direction (int64) of cell ``o`` of row ``row`` of the packed
+    trace ``rows`` u8 [n, TRACE_ROW_BYTES], elementwise over ``row`` and
+    ``o`` (0 <= o < PAD)."""
+    byte = (o >> 5) * 8 + ((o & 31) >> 3)
+    bit = o & 7
+    lo = (rows[row, byte].long() >> bit) & 1
+    hi = (rows[row, byte + 4].long() >> bit) & 1
+    return lo | (hi << 1)
 
 
 # The CUDA kernels stage their inputs in shared memory by tiles of bands
@@ -92,8 +135,8 @@ def walk_tile_reach(top: int, tile: int = WALK_TILE):
 
 def walk_smem_bytes(tile: int = WALK_TILE) -> int:
     """Dynamic shared memory of a walk block: two tiles (double-buffered)
-    of trace rows (PAD bytes) and lower-left k-mers (i32)."""
-    return 2 * tile * (PAD + 4)
+    of packed trace rows (TRACE_ROW_BYTES) and lower-left k-mers (i32)."""
+    return 2 * tile * (TRACE_ROW_BYTES + 4)
 
 
 def read_params(ev_len: np.ndarray, rk_len: np.ndarray, scale: np.ndarray,
@@ -230,8 +273,8 @@ def abea_fill_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
                     level_mean, level_stdv, level_log_stdv, params,
                     band_off):
     """Band fill for every read, batched: a Python loop over bands.
-    Returns (trace u8 [n_bands_total, PAD], llk i32 [n_bands_total],
-    start_e i32 [B])."""
+    Returns (trace u8 [n_bands_total, TRACE_ROW_BYTES], packed, llk i32
+    [n_bands_total], start_e i32 [B])."""
     dev = ev_pool.device
     B = ev_len.shape[0]
     band = _Band(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
@@ -263,7 +306,7 @@ def abea_fill_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
         k2, ll_k = ll_k, ll_k_new
 
     keep = torch.arange(trace.shape[1], device=dev)[None, :] < nb[:, None]
-    return (trace[keep], llk[keep].to(torch.int32),
+    return (pack_trace(trace[keep]), llk[keep].to(torch.int32),
             best_e.to(torch.int32))
 
 
@@ -280,9 +323,9 @@ def abea_fill_packed_plain(ev_pool, ev_off, ev_len, seq_packed, seq_off,
 
 
 def abea_walk_plain(trace, llk, band_off, start_e, rk_len, byte_off):
-    """Backtrace walk from (n_kmers-1, start_e) while k >= 0 and e >= 0,
-    batched over reads; returns (flat packed dirs u8 [byte_off[-1]],
-    n i32 [B])."""
+    """Backtrace walk from (n_kmers-1, start_e) while k >= 0 and e >= 0
+    over the packed ``trace`` [n_bands, TRACE_ROW_BYTES], batched over
+    reads; returns (flat packed dirs u8 [byte_off[-1]], n i32 [B])."""
     dev = trace.device
     B = start_e.shape[0]
     nk = rk_len.long()
@@ -294,13 +337,12 @@ def abea_walk_plain(trace, llk, band_off, start_e, rk_len, byte_off):
     e = torch.where(ok, start_e.long(), -1)
     n = torch.zeros(B, dtype=torch.int64, device=dev)
     dirs = torch.zeros((B, steps), dtype=torch.int64, device=dev)
-    trace_flat = trace.reshape(-1)
     b0 = band_off[:-1]
     for s in range(steps):
         active = (k >= 0) & (e >= 0)
         bi = torch.minimum((e + k + 2).clamp(min=0), nb - 1)
         o = (k - llk[b0 + bi].long()).clamp(0, PAD - 1)
-        f = trace_flat[(b0 + bi) * PAD + o].long()
+        f = trace_cell(trace, b0 + bi, o)
         f = torch.where(active, f, 0)
         dirs[:, s] = f
         k = k - (active & (f != FROM_U)).long()

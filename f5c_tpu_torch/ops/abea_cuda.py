@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .abea import (PAD, abea_fill_packed_plain, abea_walk_plain,
-                   fill_smem_bytes, walk_smem_bytes)
+from .abea import (TRACE_ROW_BYTES, abea_fill_packed_plain,
+                   abea_walk_plain, fill_smem_bytes, walk_smem_bytes)
 from .seq_ranks import ranks_at_kmers
 
 launches = {"abea_fill": 0, "abea_walk": 0}
@@ -49,8 +49,8 @@ def abea_fill(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k: int,
     k-mers, ``k`` the model's): the kernel ranks the k-mers itself (K11
     fused); on the CPU, ``abea_fill_packed_plain``.  ``n_bands`` is ``band_off[-1]``,
     passed from the host so that sizing the outputs never waits for the
-    device.  Returns (trace u8 [n_bands, 128], llk i32 [n_bands],
-    start_e i32 [B])."""
+    device.  Returns (the packed trace u8 [n_bands, TRACE_ROW_BYTES],
+    llk i32 [n_bands], start_e i32 [B])."""
     dev = ev_pool.device
     B = ev_len.shape[0]
     for name, t, dt, nd in (
@@ -78,7 +78,8 @@ def abea_fill(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k: int,
                                       band_off)
     if dev.type != "cuda":
         raise ValueError(f"abea_fill: unsupported device {dev}")
-    trace = torch.empty((n_bands, PAD), dtype=torch.uint8, device=dev)
+    trace = torch.empty((n_bands, TRACE_ROW_BYTES), dtype=torch.uint8,
+                        device=dev)
     llk = torch.empty(n_bands, dtype=torch.int32, device=dev)
     start_e = torch.empty(B, dtype=torch.int32, device=dev)
     lib = _build.library()
@@ -122,9 +123,11 @@ def abea_ranks(seq_packed, seq_off, rk_len, k: int):
 
 def abea_walk(trace, llk, band_off, start_e, rk_len, byte_off,
               n_bytes: int):
-    """Backtrace walk into the ragged 2-bit output (layout: ops/abea.py).
-    ``n_bytes`` is ``byte_off[-1]``, passed from the host.  Returns
-    (flat u8 [n_bytes], n i32 [B])."""
+    """Backtrace walk over the packed ``trace`` u8 [n_bands,
+    TRACE_ROW_BYTES] into the ragged 2-bit output (layout: ops/abea.py);
+    a trace of one byte a cell is refused.  ``n_bytes`` is
+    ``byte_off[-1]``, passed from the host.  Returns (flat u8 [n_bytes],
+    n i32 [B])."""
     dev = trace.device
     B = start_e.shape[0]
     for name, t, dt, nd in (
@@ -135,7 +138,7 @@ def abea_walk(trace, llk, band_off, start_e, rk_len, byte_off,
             ("rk_len", rk_len, torch.int32, 1),
             ("byte_off", byte_off, torch.int64, 1)):
         _build.check_tensor(name, t, dt, nd, dev)
-    if (trace.shape[1] != PAD or llk.shape[0] != trace.shape[0]
+    if (trace.shape[1] != TRACE_ROW_BYTES or llk.shape[0] != trace.shape[0]
             or band_off.shape[0] != B + 1 or rk_len.shape[0] != B
             or byte_off.shape[0] != B + 1):
         raise ValueError("abea_walk: inconsistent shapes")

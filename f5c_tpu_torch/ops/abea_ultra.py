@@ -4,10 +4,11 @@ pairs them.  The plain PyTorch versions of the kernels of
 ``csrc/abea_ultra.cu``.
 
 Counterpart of ``f5c_tpu/ops/abea_ultra.py`` (``fill_window``,
-``walk_window``, ``align_ultra_read``).  The unchunked fill stores one
-trace byte per band cell, n_bands x 128 bytes per read; here a read's
-trace is rebuilt one window of ``win`` bands at a time, so device memory
-is O(win) per read, at the cost of a second fill:
+``walk_window``, ``align_ultra_read``).  The unchunked fill stores a
+read's whole trace, n_bands x TRACE_ROW_BYTES (2 bits a band cell, 32 B
+a band) plus a 4-byte lower-left k-mer a band; here a read's trace is
+rebuilt one window of ``win`` bands at a time, so device memory is
+O(win) per read, at the cost of a second fill:
 
 - forward: one fill over the whole read with no trace, writing the state
   at the end of every window (a checkpoint of ``STATE_WORDS`` f32, ~1 KB);
@@ -32,8 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .abea import (LL_K0, NEG_INF, PAD, FROM_L, FROM_U, START_OFF, _Band,
-                   band_offsets, byte_offsets, ragged_offsets)
+from .abea import (LL_K0, NEG_INF, PAD, FROM_L, FROM_U, START_OFF,
+                   TRACE_ROW_BYTES, _Band, band_offsets, byte_offsets,
+                   pack_trace, ragged_offsets, trace_cell)
 from .seq_ranks import ranks_from_packed
 
 ST_LLK, ST_K2, ST_BEST_E, ST_BEST_S = 2 * PAD, 2 * PAD + 1, 2 * PAD + 2, \
@@ -83,10 +85,10 @@ def fill_window_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
     read (ABEA layout: ops/abea.py), starting from ``state`` (records
     [B, STATE_WORDS] at band ``base``).  Bands at or past a read's end
     are not run.  Returns (states f32 [B, n_win, STATE_WORDS], the state
-    at the end of each window; with ``trace``, trace u8
-    [B, n_win * win, PAD] and llk i32 [B, n_win * win] of bands
-    base .. base + n_win*win - 1 in the layout of ops/abea.py, 0 past a
-    read's end; else None, None)."""
+    at the end of each window; with ``trace``, the packed trace u8
+    [B, n_win * win, TRACE_ROW_BYTES] and llk i32 [B, n_win * win] of
+    bands base .. base + n_win*win - 1 in the layout of ops/abea.py, 0
+    past a read's end; else None, None)."""
     dev = ev_pool.device
     B = ev_len.shape[0]
     band = _Band(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
@@ -123,7 +125,7 @@ def fill_window_plain(ev_pool, ev_off, ev_len, rk_pool, rk_off, rk_len,
                 lk[:, bi - base] = torch.where(alive, ll_k_new, 0).to(
                     torch.int32)
         out[:, j] = _pack_state(prev, prev2, ll_k, k2, best_e, best_s)
-    return out, tr, lk
+    return out, None if tr is None else pack_trace(tr), lk
 
 
 def fill_window_packed_plain(ev_pool, ev_off, ev_len, seq_packed, seq_off,
@@ -138,8 +140,9 @@ def fill_window_packed_plain(ev_pool, ev_off, ev_len, seq_packed, seq_off,
 
 
 def walk_window_plain(trace, llk, base: int, kst, flat, byte_off):
-    """Backtrace walk down one window (trace u8 [B, win, PAD], llk i32
-    [B, win] of bands base .. base+win-1) for every read, from its carried
+    """Backtrace walk down one window (the packed trace u8
+    [B, win, TRACE_ROW_BYTES], llk i32 [B, win] of bands
+    base .. base+win-1) for every read, from its carried
     ``kst`` i32 [B, 3] = (k, e, n), while k >= 0, e >= 0 and
     e + k + 2 >= base.  Direction n goes to bits 2(n%4) of byte n//4 of
     the read's output in ``flat`` (u8, layout of ops/abea.py).  Returns
@@ -151,13 +154,14 @@ def walk_window_plain(trace, llk, base: int, kst, flat, byte_off):
     b0 = byte_off[:-1]
     cap = byte_off[1:] - b0
     rows = torch.arange(B, device=dev)
+    flat_tr = trace.reshape(B * win, TRACE_ROW_BYTES)
     for _ in range(win):
         active = (k >= 0) & (e >= 0) & (e + k + 2 >= base)
         if not bool(active.any()):
             break
         b = (e + k + 2 - base).clamp(0, win - 1)
         o = (k - llk[rows, b].long()).clamp(0, PAD - 1)
-        f = torch.where(active, trace[rows, b, o].long(), 0)
+        f = torch.where(active, trace_cell(flat_tr, rows * win + b, o), 0)
         wr = active & ((n >> 2) < cap)
         pos = (b0 + (n >> 2))[wr]
         flat[pos] = flat[pos] | (f << (2 * (n & 3)))[wr].to(torch.uint8)

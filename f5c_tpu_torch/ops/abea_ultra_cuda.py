@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .abea import PAD, fill_smem_bytes, walk_smem_bytes
+from .abea import TRACE_ROW_BYTES, fill_smem_bytes, walk_smem_bytes
 from .abea_cuda import check_seqs
 from .abea_ultra import (STATE_WORDS, align_windowed,
                          fill_window_packed_plain, walk_window_plain)
@@ -31,8 +31,9 @@ def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
     ``seq_off`` i64 [B], ``rk_len`` i32 [B], ``k``), and the kernel ranks
     the k-mers itself.  The contract of ``abea_ultra.fill_window_plain``;
     on the CPU, ``abea_ultra.fill_window_packed_plain``.  Returns (states
-    [B, n_win, STATE_WORDS], trace u8 [B, n_win*win, 128] or None,
-    llk i32 [B, n_win*win] or None)."""
+    [B, n_win, STATE_WORDS], the packed trace u8
+    [B, n_win*win, TRACE_ROW_BYTES] or None, llk i32 [B, n_win*win] or
+    None)."""
     dev = ev_pool.device
     B = ev_len.shape[0]
     for name, t, dt, nd in (
@@ -66,8 +67,8 @@ def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
                       device=dev)
     tr = lk = None
     if trace:
-        tr = torch.empty((B, n_win * win, PAD), dtype=torch.uint8,
-                         device=dev)
+        tr = torch.empty((B, n_win * win, TRACE_ROW_BYTES),
+                         dtype=torch.uint8, device=dev)
         lk = torch.empty((B, n_win * win), dtype=torch.int32, device=dev)
     lib = _build.library()
     with _build.device_guard(dev):
@@ -86,8 +87,9 @@ def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
 
 
 def abea_walk_window(trace, llk, base: int, kst, flat, byte_off):
-    """Walk one window (trace u8 [B, win, 128], llk i32 [B, win] of bands
-    base .. base+win-1) from ``kst`` i32 [B, 3] = (k, e, n) into the
+    """Walk one window (the packed trace u8 [B, win, TRACE_ROW_BYTES],
+    llk i32 [B, win] of bands base .. base+win-1; a trace of one byte a
+    cell is refused) from ``kst`` i32 [B, 3] = (k, e, n) into the
     ragged 2-bit output ``flat``; the contract of
     ``abea_ultra.walk_window_plain``.  Returns (kst', flat') as new
     tensors (the kernel updates copies in place)."""
@@ -100,7 +102,7 @@ def abea_walk_window(trace, llk, base: int, kst, flat, byte_off):
             ("flat", flat, torch.uint8, 1),
             ("byte_off", byte_off, torch.int64, 1)):
         _build.check_tensor(name, t, dt, nd, dev)
-    if (trace.shape[0] != B or trace.shape[2] != PAD
+    if (trace.shape[0] != B or trace.shape[2] != TRACE_ROW_BYTES
             or llk.shape != trace.shape[:2] or kst.shape[1] != 3
             or byte_off.shape[0] != B + 1):
         raise ValueError("abea_walk_window: inconsistent shapes")

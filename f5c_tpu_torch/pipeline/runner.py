@@ -81,7 +81,7 @@ from ..io.readdb import ReadDB
 from ..io.slow5 import Slow5File
 from ..models import builtin_model, load_model_file, tables_from_model
 from ..ops import abea_cuda, abea_ultra_cuda, events_cuda, hmm_cuda
-from ..ops.abea import (PAD, band_offsets, byte_offsets, ragged_offsets,
+from ..ops.abea import (TRACE_ROW_BYTES, band_offsets, byte_offsets, ragged_offsets,
                         read_params)
 from ..ops.abea_ultra import WIN_BANDS
 from ..ops.hmm import transition_params
@@ -761,16 +761,18 @@ class Pipeline:
         """Whether read ``r`` goes to the windowed ABEA.
 
         The unchunked fill keeps a read's whole trace on the card:
-        n_bands x (128 + 4) bytes (one byte per band cell and the band's
-        lower-left k-mer).  A wave of WAVE reads stays within
-        TRACE_BYTES_BUDGET when each of its reads stays within
-        TRACE_BYTES_BUDGET / WAVE, so a read over that share takes the
-        windowed path, whose trace is WIN_BANDS bands.  At the defaults
-        (4 GB, 128 reads) the share is 31.25 MB = 236,742 bands: a read
-        of about 88 kb at the 1.68 events per base of the golden R9 reads.
+        n_bands x (TRACE_ROW_BYTES + 4) = 36 bytes (2 bits a band cell,
+        as the JAX fill packs it, and the band's lower-left k-mer).  A
+        wave of WAVE reads stays within TRACE_BYTES_BUDGET when each of
+        its reads stays within TRACE_BYTES_BUDGET / WAVE, so a read over
+        that share takes the windowed path, whose trace is WIN_BANDS
+        bands.  At the defaults (4 GB, 128 reads) the share is 31.25 MB =
+        868,055 bands: a read of about 320 kb at the 2.70 bands a base
+        (1.7 events) of the R9 reads.
         """
         nb = r.n_events + len(r.seq) - self.model.k + 3
-        return nb * (PAD + 4) * self.WAVE > self.TRACE_BYTES_BUDGET
+        return (nb * (TRACE_ROW_BYTES + 4) * self.WAVE
+                > self.TRACE_BYTES_BUDGET)
 
     def _dispatch_abea(self, todo, windowed: bool = False):
         """One ABEA dispatch for ``todo``: under a mesh, with at least two
@@ -888,10 +890,10 @@ class Pipeline:
         (runner.py:1500-1528), for all such reads of a batch at once:
         one fill over the whole reads, then a fill and a walk per window,
         with no host sync between windows.  Reads go in groups whose
-        window trace, reads x WIN_BANDS x (128 + 4) bytes, stays within
-        TRACE_BYTES_BUDGET (462 reads at the defaults)."""
+        window trace, reads x WIN_BANDS x (TRACE_ROW_BYTES + 4) bytes,
+        stays within TRACE_BYTES_BUDGET (1,695 reads at the defaults)."""
         group = max(1, self.TRACE_BYTES_BUDGET
-                    // (self.WIN_BANDS * (PAD + 4)))
+                    // (self.WIN_BANDS * (TRACE_ROW_BYTES + 4)))
         for i in range(0, len(todo), group):
             part = todo[i:i + group]
             t0 = time.time()

@@ -15,8 +15,10 @@ Each DIR holds variants of this tree's ``abea.cu``, ``abea_ultra.cu``,
 the same way and timed beside them.
 The launches are the main path's, recorded from this tree's CLI: every
 K1 launch of golden x85 call-methylation (510 reads, host events) and,
-for K3, the forward launch and the full window of ultra x4 windowed
-call-methylation (``datasets.ultra_dataset(seed=2026)``).  For each:
+for K3, the forward launch and the full window of ultra x4
+call-methylation (``datasets.ultra_dataset(seed=2026)``) with the trace
+budget lowered so that every read is windowed
+(``chip_smoke.ultra_budget``).  For each:
 
 - every fill is held to the parent's bit for bit, then all are timed in
   turns (parent, change, variants, then the reverse order; CUDA-event
@@ -28,7 +30,8 @@ call-methylation (``datasets.ultra_dataset(seed=2026)``).  For each:
   torch.profiler; the probe ``abea_cuda.abea_ranks`` is timed beside it.
 
 Then (unless ``--no-traces``) one golden x85 and one ultra x4 windowed
-call-methylation run under
+(``F5C_TPU_TRACE_BYTES`` lowered the same way) call-methylation run
+under
 ``--profile-dir`` from each tree (each a fresh process, this tree then
 the parent): the kernel launches and device time by name in each trace,
 and what the parent's runs launched that this tree's did not.  Prints a
@@ -100,7 +103,9 @@ def ptrs(*tensors):
 def fills(torch, libs: dict, args, window: bool, rk):
     """{tag: closure} launching one fill each on the recorded wrapper
     arguments ``args``: the "parent" library's on ``rk``, the parent's
-    ranks of the packed sequences, every other one on the sequences."""
+    ranks of the packed sequences, every other one on the sequences.  The
+    parent wrote one trace byte a cell, the others the packed rows
+    (``abea.TRACE_ROW_BYTES`` a band)."""
     from f5c_tpu_torch.ops import abea
     from f5c_tpu_torch.ops.abea_ultra import STATE_WORDS
 
@@ -112,15 +117,16 @@ def fills(torch, libs: dict, args, window: bool, rk):
     if window:
         state, base, win, n_win, trace = args[12:17]
         shape = (B, n_win * win)
-        outs = [torch.empty((B, n_win, STATE_WORDS), device=dev)]
-        outs += ([torch.empty((*shape, abea.PAD), dtype=torch.uint8,
-                              device=dev),
-                  torch.empty(shape, dtype=torch.int32, device=dev)]
-                 if trace else [None, None])
     else:
         n_bands = args[12]
-        outs = [torch.empty((n_bands, abea.PAD), dtype=torch.uint8,
-                            device=dev),
+
+    def outputs(row):
+        if window:
+            return [torch.empty((B, n_win, STATE_WORDS), device=dev)] + (
+                [torch.empty((*shape, row), dtype=torch.uint8, device=dev),
+                 torch.empty(shape, dtype=torch.int32, device=dev)]
+                if trace else [None, None])
+        return [torch.empty((n_bands, row), dtype=torch.uint8, device=dev),
                 torch.empty(n_bands, dtype=torch.int32, device=dev),
                 torch.empty(B, dtype=torch.int32, device=dev)]
 
@@ -139,7 +145,7 @@ def fills(torch, libs: dict, args, window: bool, rk):
     name = "f5c_abea_fill_window" if window else "f5c_abea_fill"
     closures = {}
     for tag, lib in libs.items():
-        o = [None if t is None else torch.empty_like(t) for t in outs]
+        o = outputs(abea.PAD if tag == "parent" else abea.TRACE_ROW_BYTES)
         closures[tag] = (lambda f=getattr(lib, name), o=o:
                          launch(f, rk, [], o)) if tag == "parent" else (
             lambda f=getattr(lib, name), o=o: launch(f, seq, [k], o))
@@ -185,12 +191,18 @@ def count_kernels(torch, fn) -> tuple[int, float]:
 
 def measure_launch(torch, libs, rank, tag, args, window, reps):
     from f5c_tpu_torch.ops import abea_cuda
+    from f5c_tpu_torch.ops.abea import pack_trace
 
     seq, seq_off, rk_len, k = args[3:7]
     rk = rank(seq, k)
     fns = fills(torch, libs, args, window, rk)
-    want = fns["parent"]()
+    want = list(fns["parent"]())
+    t = 1 if window else 0          # the trace, packed as the others' is
+    if want[t] is not None:
+        want[t] = pack_trace(want[t])
     for name, fn in fns.items():
+        if name == "parent":
+            continue
         got = fn()
         torch.cuda.synchronize()
         if not all((g is None and w is None) or torch.equal(
@@ -217,25 +229,34 @@ def measure_launch(torch, libs, rank, tag, args, window, reps):
     return res
 
 
-def record_launches(torch, data, out, extra=()):
-    """The fill calls of one call-methylation run of this tree's CLI."""
+def record_launches(torch, data, out, extra=(), budget=None):
+    """The ABEA calls of one call-methylation run of this tree's CLI (with
+    ``budget`` as the trace budget)."""
     from f5c_tpu_torch.ops import abea_cuda, abea_ultra_cuda
+    from f5c_tpu_torch.pipeline import runner
 
+    saved = runner.Pipeline.TRACE_BYTES_BUDGET
+    if budget is not None:
+        runner.Pipeline.TRACE_BYTES_BUDGET = budget
     spy = chip_smoke.Spy([abea_cuda, abea_ultra_cuda])
     try:
         chip_smoke.run_cli(data, out, extra=extra)
     finally:
         spy.close()
+        runner.Pipeline.TRACE_BYTES_BUDGET = saved
     return spy.calls
 
 
-def trace_run(tree: str, data: dict, tmp: str, tag: str) -> dict:
+def trace_run(tree: str, data: dict, tmp: str, tag: str,
+              budget=None) -> dict:
     """One call-methylation --profile-dir run of ``tree`` in a fresh
-    process; its wall and {kernel name: [launches, device ms]} from its
-    trace."""
+    process (with ``budget`` as F5C_TPU_TRACE_BYTES); its wall and
+    {kernel name: [launches, device ms]} from its trace."""
     prof = os.path.join(tmp, f"prof_{tag}")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = tree
+    if budget is not None:
+        env["F5C_TPU_TRACE_BYTES"] = str(budget)
     argv = ["call-methylation", "--meth-out-version", "1",
             *chip_smoke.data_argv(data, os.path.join(tmp, f"{tag}.tsv")),
             "--profile-dir", prof]
@@ -274,6 +295,7 @@ def main() -> int:
         return 1
     from f5c_tpu_torch import datasets
     from f5c_tpu_torch.ops import _build
+    from f5c_tpu_torch.pipeline import runner
 
     parent = os.path.abspath(a.parent)
     card = chip_smoke.card_line()
@@ -301,7 +323,10 @@ def main() -> int:
             result["launches"].append(measure_launch(
                 torch, libs, rank, f"golden_x85_k1_{i}", args, False, 20))
         del calls
-        calls = record_launches(torch, ultra, os.path.join(tmp, "urec.tsv"))
+        # every ultra read windowed (at the defaults they run unchunked)
+        budget = chip_smoke.ultra_budget(runner, datasets)
+        calls = record_launches(torch, ultra, os.path.join(tmp, "urec.tsv"),
+                                budget=budget)
         win_calls = calls["abea_fill_window"]
         nb = int(win_calls[0][0][11].diff().min())
         full = next(c for c, _ in win_calls[1:]
@@ -312,12 +337,13 @@ def main() -> int:
                 torch, libs, rank, tag, args, True, 3))
         del calls, win_calls, full
         torch.cuda.empty_cache()
-        for name, data in (() if a.no_traces else
-                           (("golden_x85", x85), ("ultra_x4", ultra))):
+        for name, data, b in (() if a.no_traces else
+                              (("golden_x85", x85, None),
+                               ("ultra_x4", ultra, budget))):
             runs = {}
             for tree, tree_tag in ((ROOT, "change"), (parent, "parent")):
                 runs[tree_tag] = trace_run(tree, data, tmp,
-                                           f"{name}_{tree_tag}")
+                                           f"{name}_{tree_tag}", b)
             lost = {}
             for k, (n, ms) in runs["parent"]["kernels"].items():
                 n_c, ms_c = runs["change"]["kernels"].get(k, (0, 0.0))

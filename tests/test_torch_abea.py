@@ -108,17 +108,27 @@ def test_plain_matches_ring_kernel_interpret():
             _dirs(flat, byte_off[i], n[i]), _dirs(flat_j, off[i], n_j[i]))
 
 
-def test_plain_matches_xla_fill_and_walk(mixed):
+@pytest.fixture(scope="module")
+def xla_fill(mixed):
+    """The JAX package's XLA fill of the mixed reads: (batch, its output
+    (trace u8 [B, n_bands, PAD], ll_event, ll_kmer, last_col), E, K)."""
     from f5c_tpu.ops import abea
 
-    model, seqs, events, scale, shift, x, (flat, start_e, n) = mixed
+    model, seqs, events, scale, shift, _x, _ = mixed
     ranks = [model.kmer_ranks(s) for s in seqs]
     scalings = [Scalings(shift=float(b), scale=float(a))
                 for a, b in zip(scale, shift)]
     batch = abea.make_batch(events, ranks, model, scalings=scalings)
     E = batch.event_means.shape[1] - 2 * abea.PAD
     K = batch.kmer_mean.shape[1] - 2 * abea.PAD
-    fill = abea.abea_fill(batch, n_bands=E + K + 2)
+    return batch, abea.abea_fill(batch, n_bands=E + K + 2), E, K
+
+
+def test_plain_matches_xla_fill_and_walk(mixed, xla_fill):
+    from f5c_tpu.ops import abea
+
+    model, seqs, events, scale, shift, x, (flat, start_e, n) = mixed
+    batch, fill, E, K = xla_fill
     packed, start_x, n_x, *_ = abea.abea_backtrace_packed(
         fill, batch, max_pairs=-(-(E + K) // 4) * 4)
     packed, start_x, n_x = (np.asarray(a) for a in (packed, start_x, n_x))
@@ -128,6 +138,79 @@ def test_plain_matches_xla_fill_and_walk(mixed):
     for i in range(len(seqs)):
         np.testing.assert_array_equal(_dirs(flat, x["byte_off"][i], n[i]),
                                       _dirs(packed[i], 0, n_x[i]))
+
+
+def test_packed_trace_matches_xla_fill(mixed, xla_fill):
+    """The fill wrapper's trace (CPU: the plain fill) is TRACE_ROW_BYTES a
+    band, and unpacked it is the JAX XLA fill's one-byte-a-cell trace,
+    cell for cell over each read's bands; so are the lower-left k-mers."""
+    _model, _seqs, _events, _scale, _shift, x, _ = mixed
+    _batch, (trace_x, _ll_e, ll_k, _lc), _E, _K = xla_fill
+    trace_x, ll_k = np.asarray(trace_x), np.asarray(ll_k)
+    t = _tensors(x)
+    trace, llk, _ = abea_cuda.abea_fill(
+        *(t[k] for k in ("ev_pool", "ev_off", "ev_len", "seq_packed",
+                         "seq_off", "rk_len", "k", *TABLES)), x["n_bands"])
+    assert trace.shape == (x["n_bands"], port_abea.TRACE_ROW_BYTES) == (
+        x["n_bands"], 32)
+    dirs = port_abea.unpack_trace(trace).numpy()
+    assert set(np.unique(dirs)) == {0, 1, 2}
+    for i in range(len(x["rk_len"])):
+        b0, b1 = int(x["band_off"][i]), int(x["band_off"][i + 1])
+        np.testing.assert_array_equal(dirs[b0:b1], trace_x[i, :b1 - b0],
+                                      err_msg=str(i))
+        np.testing.assert_array_equal(llk[b0:b1].numpy(),
+                                      ll_k[i, :b1 - b0], err_msg=str(i))
+
+
+@pytest.mark.parametrize("lead", [(0,), (1,), (7,), (4, 13), (2, 0, 5)])
+def test_pack_trace_round_trip(lead):
+    """pack_trace / unpack_trace on seeded directions 0-2 (band counts
+    that are not multiples of 4, empty reads), and trace_cell reads every
+    cell of the packed rows as unpack_trace does."""
+    rng = np.random.default_rng(sum(lead) + 5)
+    dirs = torch.from_numpy(rng.integers(0, 3, (*lead, port_abea.PAD),
+                                         dtype=np.uint8))
+    rows = port_abea.pack_trace(dirs)
+    assert rows.dtype == torch.uint8
+    assert rows.shape == (*lead, port_abea.TRACE_ROW_BYTES)
+    assert torch.equal(port_abea.unpack_trace(rows), dirs)
+    flat_rows = rows.reshape(-1, port_abea.TRACE_ROW_BYTES)
+    flat_dirs = dirs.reshape(-1, port_abea.PAD)
+    r, o = torch.meshgrid(torch.arange(flat_rows.shape[0]),
+                          torch.arange(port_abea.PAD), indexing="ij")
+    assert torch.equal(port_abea.trace_cell(flat_rows, r, o),
+                       flat_dirs.long())
+
+
+def test_pack_trace_layout():
+    """The bytes of one row as the kernels' ballots lay them out: warp w's
+    8 bytes are bit 0 of cells 32w..32w+31 as a little-endian u32, then
+    bit 1 of the same cells."""
+    dirs = torch.zeros(port_abea.PAD, dtype=torch.uint8)
+    dirs[[0, 33, 70, 127]] = torch.tensor([1, 2, 1, 2], dtype=torch.uint8)
+    row = port_abea.pack_trace(dirs).numpy().view("<u4")
+    assert row.tolist() == [1, 0, 0, 1 << 1, 1 << 6, 0, 0, 1 << 31]
+
+
+def test_walks_refuse_a_byte_per_cell_trace(mixed):
+    """The walk wrappers take the packed trace only."""
+    _model, _seqs, _events, _scale, _shift, x, _ = mixed
+    t = _tensors(x)
+    trace = port_abea.unpack_trace(torch.zeros(
+        (x["n_bands"], port_abea.TRACE_ROW_BYTES), dtype=torch.uint8))
+    llk = torch.zeros(x["n_bands"], dtype=torch.int32)
+    start_e = torch.zeros(len(x["rk_len"]), dtype=torch.int32)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        abea_cuda.abea_walk(trace, llk, t["band_off"], start_e, t["rk_len"],
+                            t["byte_off"], x["n_bytes"])
+    B = len(x["rk_len"])
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        abea_ultra_cuda.abea_walk_window(
+            torch.zeros((B, 5, port_abea.PAD), dtype=torch.uint8),
+            torch.zeros((B, 5), dtype=torch.int32), 2,
+            torch.zeros((B, 3), dtype=torch.int32),
+            torch.zeros(x["n_bytes"], dtype=torch.uint8), t["byte_off"])
 
 
 def test_plain_matches_numpy_oracle(mixed):

@@ -151,5 +151,9 @@ def test_reads_past_tpu_limits_are_routed():
         long = SimpleNamespace(qname="r", seq="A" * n_bases,
                                n_events=n_events)
         assert not pipe._takes_window_path(long)
-    ultra = SimpleNamespace(qname="r", seq="A" * 100_000, n_events=168_000)
+    # ~268,000 bands: under the default share of 868,055 (2 bits a cell)
+    long100 = SimpleNamespace(qname="r", seq="A" * 100_000,
+                              n_events=168_000)
+    assert not pipe._takes_window_path(long100)
+    ultra = SimpleNamespace(qname="r", seq="A" * 330_000, n_events=560_000)
     assert pipe._takes_window_path(ultra)

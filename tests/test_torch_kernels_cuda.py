@@ -64,6 +64,8 @@ def test_abea_kernels_match_plain(cuda):
     got = abea_cuda.abea_fill(*_fill_args(x), x["n_bands"])
     want = abea.abea_fill_packed_plain(*_fill_args(x))
     torch.cuda.synchronize()
+    # the trace 2 bits a cell, byte for byte the plain version's packing
+    assert got[0].shape == (x["n_bands"], abea.TRACE_ROW_BYTES)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     trace, llk, start_e = want
@@ -238,6 +240,7 @@ def test_abea_window_kernels_match_plain(cuda, win):
     want = abea_ultra.fill_window_packed_plain(*args, state, base, win, 1,
                                                True)
     torch.cuda.synchronize()
+    assert got[1].shape == (len(n_kmers), win, abea.TRACE_ROW_BYTES)
     for g, p in zip(got, want):
         assert torch.equal(_bits(g), _bits(p))
     trace, llk = want[1], want[2]

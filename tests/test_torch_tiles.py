@@ -44,7 +44,8 @@ def plain():
         "band_off")))
     flat, n = abea.abea_walk_plain(trace, llk, t["band_off"], start_e,
                                    t["rk_len"], t["byte_off"])
-    return dict(x=x, trace=trace.numpy(), llk=llk.numpy().astype(np.int64),
+    return dict(x=x, trace=abea.unpack_trace(trace).numpy(),
+                llk=llk.numpy().astype(np.int64),
                 start_e=start_e.numpy(), flat=flat.numpy(), n=n.numpy())
 
 
@@ -164,8 +165,10 @@ def test_kernel_smem_matches_wrappers():
     assert int(band["RING"]) == abea.fill_ring_slots()
     assert int(walk["WALK_TILE"]) == abea.WALK_TILE
     assert band["FILL_SMEM"] == "RING * (16 + 4) + PAD * 12"
-    assert walk["WALK_SMEM"] == "2 * WALK_TILE * (PAD + 4)"
+    assert band["TRACE_ROW"] == "PAD / 4"
+    assert abea.TRACE_ROW_BYTES == abea.PAD // 4 == 32
+    assert walk["WALK_SMEM"] == "2 * WALK_TILE * (TRACE_ROW + 4)"
     assert abea.fill_smem_bytes() == abea.fill_ring_slots() * 20 + 128 * 12
-    assert abea.walk_smem_bytes() == 2 * abea.WALK_TILE * (128 + 4)
+    assert abea.walk_smem_bytes() == 2 * abea.WALK_TILE * (32 + 4)
     assert abea.walk_smem_bytes() <= 48 * 1024
     assert abea.fill_smem_bytes() <= 48 * 1024

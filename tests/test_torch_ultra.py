@@ -147,11 +147,16 @@ def test_window_state_and_trace_layout(mixed):
     part, _, _ = abea_ultra_cuda.abea_fill_window(*args, s0, 2, 97, 2, False)
     rest, tr2, lk2 = abea_ultra_cuda.abea_fill_window(
         *args, part[:, 1].contiguous(), 2 + 2 * 97, 97, 1, True)
+    # packed rows: TRACE_ROW_BYTES a band, in the unchunked fill and in
+    # the windows
+    band_off = x["band_off"]
+    B = len(band_off) - 1
+    assert trace.shape == (x["n_bands"], 32)
+    assert tr.shape == (B, 3 * 97, 32) and tr2.shape == (B, 97, 32)
     # state records hold ints as f32 bits: compare bits
     assert torch.equal(whole[:, 2].view(torch.int32),
                        rest[:, 0].view(torch.int32))
     assert torch.equal(tr[:, 2 * 97:], tr2) and torch.equal(lk[:, 194:], lk2)
-    band_off = x["band_off"]
     for i in range(len(band_off) - 1):
         nb = int(band_off[i + 1] - band_off[i])
         m = min(nb - 2, 3 * 97)
@@ -166,17 +171,18 @@ def _read(n_bases: int, n_events: int):
 
 
 def test_routing_rule(model):
-    """A read takes the windowed path when n_bands x (128 + 4) bytes
-    exceeds TRACE_BYTES_BUDGET / WAVE (31.25 MB, 236,742 bands at the
-    defaults); a read past the JAX runner's TPU limits no longer raises."""
+    """A read takes the windowed path when n_bands x (32 + 4) bytes (2
+    bits a band cell and the band's lower-left k-mer) exceeds
+    TRACE_BYTES_BUDGET / WAVE (31.25 MB, 868,055 bands at the defaults);
+    a read past the JAX runner's TPU limits no longer raises."""
     pipe = Pipeline.bare(Options(), model)
     assert (pipe.TRACE_BYTES_BUDGET, pipe.WAVE) == (4_000_000_000, 128)
     assert pipe.WIN_BANDS == 1 << 16
     k = model.k
     assert not pipe._takes_window_path(_read(70_000 + k - 1, 1000))
-    cap = pipe.TRACE_BYTES_BUDGET // (pipe.WAVE * 132)
-    assert cap == 236_742
-    L = 100_000
+    cap = pipe.TRACE_BYTES_BUDGET // (pipe.WAVE * 36)
+    assert cap == 868_055
+    L = 300_000
     under = _read(L, cap - (L - k + 1) - 2)
     over = _read(L, cap + 1 - (L - k + 1) - 2)
     assert not pipe._takes_window_path(under)
@@ -292,8 +298,11 @@ def test_cli_skip_ultra(golden_dir):
 
 def test_ultra_dataset_reads_take_window_path(tmp_path, model):
     """At the default budget every read of the 100-300 kb synthetic set
-    is routed to the windowed path (events detected as the pipeline
-    does; nothing aligned)."""
+    stays on the unchunked path (the longest has 811,435 bands, under the
+    share of 868,055), and under chip_smoke.py's forced budget (a share of
+    datasets.ULTRA_WINDOWED_SHARE bands) every read is routed to the
+    windowed path (events detected as the pipeline does; nothing
+    aligned)."""
     from f5c_tpu import native
     from f5c_tpu.io.fasta import read_fastx
     from f5c_tpu.io.slow5 import Slow5File
@@ -303,14 +312,21 @@ def test_ultra_dataset_reads_take_window_path(tmp_path, model):
     assert sorted(len(s) // 1000 for s in seqs.values()) == [100, 150, 200,
                                                             300]
     pipe = Pipeline.bare(Options(), model)
+    forced = Pipeline.bare(Options(), model)
+    forced.TRACE_BYTES_BUDGET = (forced.WAVE * 36
+                                 * datasets.ULTRA_WINDOWED_SHARE)
     f = Slow5File(d["slow5"])
+    bands = []
     try:
         for q in f.read_ids():
             n_events = native.detect_events(f.get(q).to_pa()).mean.shape[0]
-            assert pipe._takes_window_path(SimpleNamespace(
-                qname=q, seq=seqs[q], n_events=n_events)), q
+            r = SimpleNamespace(qname=q, seq=seqs[q], n_events=n_events)
+            bands.append(n_events + len(seqs[q]) - model.k + 3)
+            assert not pipe._takes_window_path(r), q
+            assert forced._takes_window_path(r), q
     finally:
         f.close()
+    assert sorted(bands) == [270_240, 406_214, 541_387, 811_435]
 
 
 def test_ultra_dataset_windowed_matches_unchunked(tmp_path):
