@@ -23,7 +23,12 @@ Phases (each prints one line; any failure raises and exits nonzero):
    tests/test_torch_ranks.py, one read of ~5,000 bands in windows of
    1,000, and one long read -- a chain of ~420 tiles of the fill and the
    walk -- among 40 short ones, held to the plain versions at two of its
-   windows); the event detector (K9) bit for bit its plain version and
+   windows); every unchunked walk launch by each route (the tile-parallel
+   walk of csrc/abea_walk_tiled.cu, the one-warp walk, the crossover's
+   mix) and every window walk by both (tiled, one-warp) bit for bit the
+   plain walks, and the long read's walk the plain tiled walk
+   (ops/abea.py abea_walk_tiled_plain), the routes and the tiled walk's
+   three phases timed; the event detector (K9) bit for bit its plain version and
    native.detect_events on the golden signals and on synthetic DNA (tiny
    values whose prefix sums round, the densest pattern) and RNA signals,
    and its chunk-parallel peak scan alone (the probe) on the golden
@@ -78,7 +83,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
    windowed call-methylation once more with device events: its peak
    device memory (K9's scratch) and the bytes of the host-events run;
    the unchunked kernels timed, and the unchunked fill's trace rows at
-   those two windows held byte for byte to the plain re-fills';
+   those two windows held byte for byte to the plain re-fills'; the
+   unchunked walk (811,435 bands on the longest read) by both routes held
+   to the plain tiled walk and timed, with the tiled walk's phases (at
+   the full window too);
 7. pores: the synthetic R10 set (4 reads, full-size 9-mer tables:
    f5c_tpu_torch.synthetic.r10_models / r10_dataset) through
    call-methylation and eventalign --summary with the native and the
@@ -110,7 +118,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
     overhead, not scaling.
 
 It prints a JSON line of the kernels (launches on the main path, max
-abs error against the plain version, ms (for K8 and K9 the kernels
+abs error against the plain version, ms (for K4 and K10 the tiled walk,
+the route of every read of the main path, by its launch span, with its
+phases alone, the tiles it chases and the one-warp walk's ms beside, and
+for K4 the whole wrapper call as wrapper_ms; for K8 and K9 the kernels
 alone, with the whole wrapper call as wrapper_ms; for K9 also its peak
 kernel alone, peaks_ms and its bound, and the rounds of its peak scan on
 the main path, and as library_ms torch.cumsum's prefix sums of its
@@ -194,13 +205,19 @@ KERNELS = {
     # K11, fused into K1 and K3; timed and held through its probe
     "abea_ranks": ("f5c_tpu_torch/csrc/abea_band.cuh",
                    "f5c_tpu/ops/seq_ranks.py:72"),
-    "abea_walk": ("f5c_tpu_torch/csrc/abea.cu",
+    # K4: the tile-parallel walk, the route of every read of at least
+    # abea_cuda.TILED_MIN_BANDS bands (every read of the main path); the
+    # one-warp walk of csrc/abea.cu, the route of shorter reads, is held
+    # and timed beside it ("abea_walk_warp")
+    "abea_walk": ("f5c_tpu_torch/csrc/abea_walk_tiled.cu",
                   "f5c_tpu/ops/abea_ring.py:377"),
     "hmm_forward": ("f5c_tpu_torch/csrc/hmm.cu",
                     "f5c_tpu/ops/hmm_pallas.py:57"),
     "abea_fill_window": ("f5c_tpu_torch/csrc/abea_ultra.cu",
                          "f5c_tpu/ops/abea_ultra.py:49"),
-    "abea_walk_window": ("f5c_tpu_torch/csrc/abea_ultra.cu",
+    # K10: the tile-parallel walk of a window (the one-warp window walk of
+    # csrc/abea_ultra.cu is held beside it, off the path)
+    "abea_walk_window": ("f5c_tpu_torch/csrc/abea_walk_tiled.cu",
                          "f5c_tpu/ops/abea_ultra.py:306"),
     "events": ("f5c_tpu_torch/csrc/events.cu",
                "f5c_tpu/ops/events_device.py:272"),
@@ -432,9 +449,13 @@ def compare_launches(spy_calls, torch):
         want = abea.abea_fill_packed_plain(*args[:12])
         err["abea_fill"] = max(err.get("abea_fill", 0), _int_err(got, want))
     for args, kw in spy_calls.get("abea_walk", ()):
-        got = abea_cuda.abea_walk(*args, **kw)
+        # each route on every read, and the crossover's mix
         want = abea.abea_walk_plain(*args[:6])
-        err["abea_walk"] = max(err.get("abea_walk", 0), _int_err(got, want))
+        kw = {k: v for k, v in kw.items() if k != "route"}
+        for key, route in (("abea_walk", "tiled"), ("abea_walk", None),
+                           ("abea_walk_warp", "warp")):
+            got = abea_cuda.abea_walk(*args, route=route, **kw)
+            err[key] = max(err.get(key, 0), _int_err(got, want))
     for args, kw in spy_calls.get("hmm_forward", ()):
         e, e_ranks = hold_hmm(torch, args, kw)
         err["hmm_forward"] = max(err.get("hmm_forward", 0.0), e)
@@ -445,10 +466,11 @@ def compare_launches(spy_calls, torch):
         err["abea_fill_window"] = max(err.get("abea_fill_window", 0),
                                       _int_err(got, want))
     for args, kw in spy_calls.get("abea_walk_window", ()):
-        got = abea_ultra_cuda.abea_walk_window(*args, **kw)
-        want = abea_ultra.walk_window_plain(*args, **kw)
-        err["abea_walk_window"] = max(err.get("abea_walk_window", 0),
-                                      _int_err(got, want))
+        want = abea_ultra.walk_window_plain(*args)
+        for key, route in (("abea_walk_window", "tiled"),
+                           ("abea_walk_window_warp", "warp")):
+            got = abea_ultra_cuda.abea_walk_window(*args, route=route)
+            err[key] = max(err.get(key, 0), _int_err(got, want))
     for args, kw in spy_calls.get("events", ()):
         got = events_cuda.detect_events(*args, **kw)
         want = events_device.detect_events_plain(*args, **kw)
@@ -457,8 +479,9 @@ def compare_launches(spy_calls, torch):
         got = viterbi_cuda.viterbi_rounds(*args, **kw)
         want = hmm.viterbi_rounds_plain(*args[:9])
         err["viterbi"] = max(err.get("viterbi", 0), _int_err(got, want))
-    for name in ("abea_fill", "abea_walk", "abea_fill_window",
-                 "abea_walk_window", "abea_ranks", "hmm_ranks", "events",
+    for name in ("abea_fill", "abea_walk", "abea_walk_warp",
+                 "abea_fill_window", "abea_walk_window",
+                 "abea_walk_window_warp", "abea_ranks", "hmm_ranks", "events",
                  "viterbi"):
         if err.get(name, 0) != 0:
             raise AssertionError(f"{name}: kernel differs from plain "
@@ -801,9 +824,18 @@ def time_unchunked_kernels(torch, calls, plain_fills, win: int) -> dict:
     if e or not rows_held:
         raise AssertionError("ultra: the unchunked fill's trace differs "
                              f"from the plain re-fill's ({e})")
+    got = abea_cuda.abea_walk(*walk)
+    walk_info = hold_walk_routes(torch, walk, got, "ultra unchunked")
+    fill_ms = time_ms(torch, lambda: abea_cuda.abea_fill(*fill), 1)
+    chain = int(np.diff(band_off).max())
     return dict(
-        fill_unchunked=time_ms(torch, lambda: abea_cuda.abea_fill(*fill), 1),
-        walk_unchunked=time_ms(torch, lambda: abea_cuda.abea_walk(*walk), 1),
+        fill_unchunked=fill_ms,
+        fill_unchunked_ns_per_band=round(1e6 * fill_ms / chain, 1),
+        fill_unchunked_chain_bands=chain,
+        walk_unchunked_steps=int(got[1].max()),
+        walk_unchunked_bound_ms=bound_of("abea_walk", walk, {},
+                                         got)[0],
+        **{f"unchunked_{k}": v for k, v in walk_info.items()},
         fill_unchunked_rows_held=rows_held)
 
 
@@ -818,7 +850,7 @@ def hold_windows(torch, calls, win: int, picks: dict):
     bound_by)}}, fields to print, {tag: (base, plain re-fill)})."""
     import numpy as np
 
-    from f5c_tpu_torch.ops import abea_ultra, abea_ultra_cuda
+    from f5c_tpu_torch.ops import _build, abea, abea_ultra, abea_ultra_cuda
 
     fwd = calls["abea_fill_window"][0][0]
     if fwd[16] or fwd[13] != 2:
@@ -846,6 +878,10 @@ def hold_windows(torch, calls, win: int, picks: dict):
             torch, lambda: abea_ultra.walk_window_plain(*wa))
         got_f = abea_ultra_cuda.abea_fill_window(*fa)
         got_w = abea_ultra_cuda.abea_walk_window(*wa)
+        warp_w = abea_ultra_cuda.abea_walk_window(*wa, route="warp")
+        if _int_err(warp_w, want_w):
+            raise AssertionError("the one-warp window walk differs from "
+                                 "plain")
         err["abea_fill_window"] = max(
             err["abea_fill_window"], _int_err(got_f, want_f),
             _int_err((ckpt[:, w:w + 1].contiguous(),), want_f[:1]),
@@ -854,8 +890,15 @@ def hold_windows(torch, calls, win: int, picks: dict):
                                       _int_err(got_w, want_w))
         ms_f = time_ms(torch, lambda: abea_ultra_cuda.abea_fill_window(*fa),
                        3)
-        ms_w = time_ms(torch, lambda: abea_ultra_cuda.abea_walk_window(*wa),
-                       3)
+        # the walks by their launch spans (the wrapper's copies of its
+        # (k, e, n) and output outside them)
+        ms_w = kernel_ms(torch, _build, lambda: abea_ultra_cuda.
+                         abea_walk_window(*wa), 3)
+        ms_warp = kernel_ms(torch, _build, lambda: abea_ultra_cuda.
+                            abea_walk_window(*wa, route="warp"), 3)
+        phases = walk_phase_ms(torch, lambda p, sc: abea_ultra_cuda.
+                               abea_walk_window(*wa, phases=p, scratch=sc),
+                               3)
         timings[tag] = {
             "abea_fill_window": (ms_f, plain_f, *bound_of(
                 "abea_fill_window", fa, {}, got_f)),
@@ -864,8 +907,11 @@ def hold_windows(torch, calls, win: int, picks: dict):
         info[f"window_{tag}"] = dict(
             index=w, base=base, bands=int(np.clip(nb - base, 0, win).max()),
             reads=int((nb > base).sum()), fill_ms=round(ms_f, 3),
-            fill_plain_ms=round(plain_f, 1), walk_ms=round(ms_w, 3),
-            walk_plain_ms=round(plain_w, 1),
+            fill_plain_ms=round(plain_f, 1),
+            fill_ns_per_band=round(1e6 * ms_f / win, 1),
+            walk_ms=round(ms_w, 3), walk_warp_ms=round(ms_warp, 3),
+            walk_phases_ms=phases, walk_plain_ms=round(plain_w, 1),
+            walk_chase_tiles=-(-win // abea.WALK_TILE),
             walk_steps=int((got_w[0][:, 2] - wa[3][:, 2]).sum()))
         plain_fills[tag] = (base, want_f)
     for name, e in err.items():
@@ -873,6 +919,36 @@ def hold_windows(torch, calls, win: int, picks: dict):
             raise AssertionError(f"{name}: kernel differs from plain at the "
                                  f"run's windows (max abs err {e})")
     return err, timings, info, plain_fills
+
+
+def hold_walk_routes(torch, walk_args, walk, what: str) -> dict:
+    """An unchunked walk launch (``walk``: the wrapper's output on
+    ``walk_args``) held bit for bit by each route -- the one-warp kernel
+    and the tiled kernels on every read -- and to the plain tiled walk
+    (abea.abea_walk_tiled_plain, the plain version of its three phases);
+    each route and the tiled walk's phases timed by their launch spans.
+    Returns fields to print."""
+    from f5c_tpu_torch.ops import _build, abea, abea_cuda
+
+    want, plain_ms = run_once(
+        torch, lambda: abea.abea_walk_tiled_plain(*walk_args[:6]))
+    routes = {r: abea_cuda.abea_walk(*walk_args, route=r)
+              for r in ("warp", "tiled")}
+    for r, got in list(routes.items()) + [("crossover", walk)]:
+        if _int_err(got, want):
+            raise AssertionError(f"{what}: the {r} walk differs from the "
+                                 "plain tiled walk")
+    bands = (walk_args[2][1:] - walk_args[2][:-1]).cpu().numpy()
+    ms = {r: round(kernel_ms(torch, _build, lambda: abea_cuda.abea_walk(
+        *walk_args, route=r), 5), 4) for r in ("warp", "tiled")}
+    return dict(walk_warp_ms=ms["warp"], walk_tiled_ms=ms["tiled"],
+                walk_tiled_phases_ms=walk_phase_ms(
+                    torch, lambda p, sc: abea_cuda.abea_walk(
+                        *walk_args, route="tiled", phases=p, scratch=sc), 5),
+                walk_tiled_plain_ms=round(plain_ms, 1),
+                walk_chase_tiles=int(-(-bands.max() // abea.WALK_TILE)),
+                walk_tiled_reads=int((bands >= abea_cuda.TILED_MIN_BANDS)
+                                     .sum()))
 
 
 def mixed_long_short(torch, dev):
@@ -905,6 +981,7 @@ def mixed_long_short(torch, dev):
     walk_args = (fill[0], fill[1], t["band_off"], fill[2], t["rk_len"],
                  t["byte_off"], x["n_bytes"])
     walk = abea_cuda.abea_walk(*walk_args)
+    walk_info = hold_walk_routes(torch, walk_args, walk, "mixed batch")
     fill_ms = time_ms(torch, lambda: abea_cuda.abea_fill(
         *args, x["n_bands"]), 5)
     walk_ms = time_ms(torch, lambda: abea_cuda.abea_walk(*walk_args), 5)
@@ -934,6 +1011,7 @@ def mixed_long_short(torch, dev):
     err.update(abea_fill=e_fill, abea_walk=0)
     f_bound = bound_of("abea_fill", args + (x["n_bands"],), {}, fill)
     w_bound = bound_of("abea_walk", walk_args, {}, walk)
+    info.update(walk_info)
     info.update(reads=len(seqs), chain_bands=chain,
                 walk_steps=int(walk[1].max()), fill_ms=round(fill_ms, 3),
                 fill_bound_ms=round(f_bound[0], 4),
@@ -958,8 +1036,9 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                 reset_counts, read_counts):
     """Phase 6.  Returns the launch counts of the windowed
     call-methylation run (the budget lowered), the main path of the
-    window kernels, and the window kernels' errors and (ms, plain_ms) at
-    that run's shapes."""
+    window kernels, the window kernels' errors and (ms, plain_ms) at
+    that run's shapes, and the fields of its full window (hold_windows:
+    the walk by each route, the tiled walk's phases)."""
     import filecmp
 
     from f5c_tpu_torch.ops import abea_ultra
@@ -1006,6 +1085,7 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                     for tag, (base, want) in plain_fills.items()}
                 timings = timings["full"]
                 kernel_ms.update(info)
+                walk_full = info["window_full"]
                 err.update(compare_launches(
                     {"hmm_forward": spy.calls["hmm_forward"]}, torch))
                 kernel_ms.update(hmm_launches=len(spy.calls["hmm_forward"]),
@@ -1091,7 +1171,7 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
                 byte_identical=same, deviant_rows=bad)
             if bad:
                 raise AssertionError(f"ultra {cmd} {key}: {bad} rows deviate")
-    return runs["windowed", "meth"]["counts"], err, timings
+    return runs["windowed", "meth"]["counts"], err, timings, walk_full
 
 
 def hold_ultra_events(torch, calls) -> dict:
@@ -1581,7 +1661,7 @@ def profile_dir_phase(tmp, golden) -> None:
         raise AssertionError("profile_dir: no trace, or a kernel missing")
 
 
-PROFILED_KERNELS = ("abea_fill_kernel", "abea_walk_kernel",
+PROFILED_KERNELS = ("abea_fill_kernel", "walk_chase_kernel",
                     "hmm_forward_meta_kernel")
 
 
@@ -1762,6 +1842,20 @@ def time_ms(torch, fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def walk_phase_ms(torch, fn, reps: int) -> dict:
+    """The tiled walk's three phases, each launched alone by
+    ``fn(phases, scratch)`` after one whole run into the same scratch
+    (maps, chase, emission: csrc/abea_walk_tiled.cu), ms each by the
+    wrapper's launch spans (kernel_ms)."""
+    from f5c_tpu_torch.ops import _build
+
+    scratch = {}
+    fn(7, scratch)
+    return {name: round(kernel_ms(torch, _build, lambda: fn(bit, scratch),
+                                  reps), 4)
+            for name, bit in (("maps", 1), ("chase", 2), ("emit", 4))}
 
 
 def kernel_ms(torch, _build, fn, reps: int) -> float:
@@ -2273,7 +2367,8 @@ def main(argv: list[str]) -> int:
             finally:
                 if spy is not None:
                     spy.close()
-            counts = {k: v for k, v in read_counts().items()
+            counts_all = read_counts()
+            counts = {k: v for k, v in counts_all.items()
                       if k in ("abea_fill", "abea_walk", "hmm_forward",
                                "events")}
             # the peak scan's rounds on the main path (the last run)
@@ -2356,9 +2451,11 @@ def main(argv: list[str]) -> int:
                 lambda: hmm.viterbi_rounds_plain(*vit_a[:9])),
         }
         # the serial chains of the ABEA launch: the longest read's bands
-        # (fill) and the longest walk's steps
+        # (fill) and the longest walk's steps; the walk by each route
         chain = int((fill_a[11][1:] - fill_a[11][:-1]).max())
-        steps = int(abea_cuda.abea_walk(*walk_a, **walk_kw)[1].max())
+        walk_out = abea_cuda.abea_walk(*walk_a, **walk_kw)
+        steps = int(walk_out[1].max())
+        walk_routes = hold_walk_routes(torch, walk_a, walk_out, "golden x85")
         hmm_work = hmm_shape(hmm_a, hmm_kw)
         shapes = dict(reads=int(fill_a[2].shape[0]), bands=fill_a[12],
                       chain_bands=chain, walk_steps=steps,
@@ -2375,7 +2472,7 @@ def main(argv: list[str]) -> int:
         # its sums kernel
         events_cumsum = cumsum_ms(torch, ev_a[0], 20)
         wrapper_ms = {}
-        for name in ("events", "viterbi"):
+        for name in ("events", "viterbi", "abea_walk"):
             kern_ms = kernel_ms(torch, _build, timed[name][0], 20)
             wrapper_ms[name] = timings[name][0]
             timings[name] = (kern_ms, *timings[name][1:])
@@ -2424,7 +2521,7 @@ def main(argv: list[str]) -> int:
             fill_ns_per_band=f"{1e6 * timings['abea_fill'][0] / chain:.1f}",
             walk_ns_per_step=f"{1e6 * timings['abea_walk'][0] / steps:.1f}",
             hmm_ns_per_warp_step=f"{ns_ws:.1f}",
-            k6_build_inputs_ms=f"{k6_ms:.4f}")
+            k6_build_inputs_ms=f"{k6_ms:.4f}", **walk_routes)
 
         # 6. ultra-long reads through both entry points, windowed (the
         # defaults) and unchunked (budget raised); the main path of the
@@ -2432,7 +2529,7 @@ def main(argv: list[str]) -> int:
         # recorded calls are dropped first: they hold device memory.
         del (spy, synth_calls, timed, fill_a, walk_a, hmm_a, ev_a, vit_calls,
              scale_vit, big_scale, vit_a)
-        ultra_counts, err_ultra, ultra_timings = ultra_phase(
+        ultra_counts, err_ultra, ultra_timings, ultra_walk = ultra_phase(
             tmp, torch, card, runner, datasets, kernel_mods, reset_counts,
             read_counts)
         timings.update(ultra_timings)
@@ -2446,6 +2543,16 @@ def main(argv: list[str]) -> int:
         # 10. the mesh over two slots of the card, and two --dist ranks
         parallel_phase(tmp, card, golden, scale)
 
+        walk_extra = {
+            "abea_walk": dict(
+                phases_ms=walk_routes["walk_tiled_phases_ms"],
+                chase_tiles=walk_routes["walk_chase_tiles"],
+                warp_ms=walk_routes["walk_warp_ms"],
+                warp_launches=counts_all["abea_walk_warp"]),
+            "abea_walk_window": dict(
+                phases_ms=ultra_walk["walk_phases_ms"],
+                chase_tiles=ultra_walk["walk_chase_tiles"],
+                warp_ms=ultra_walk["walk_warp_ms"])}
         errs = {name: max(e.get(name, 0) for e in (
             err_golden, err_synth, err_scale, err_golden_win,
             err_synth_win, err_mixed, err_ultra, err_vit, err_big,
@@ -2475,6 +2582,10 @@ def main(argv: list[str]) -> int:
             if name in wrapper_ms:
                 # ms: the kernels alone; wrapper_ms: the whole call
                 kernels[-1]["wrapper_ms"] = wrapper_ms[name]
+            if name in walk_extra:
+                # the tiled walk's phases alone, its serial chain (tiles
+                # chased) and the one-warp walk's time on the same launch
+                kernels[-1].update(walk_extra[name])
             if name == "events":
                 kernels[-1].update(peak_scan)
         kernels += stage_rows(counts["events"], errs["events"])

@@ -28,8 +28,11 @@
 //   4 B rank.  The next tile's k-mer stays in flight as two words: more
 //   state live across the tile's bands slows them (a k-mer's bytes held
 //   in 5 registers cost K3 11 % a window on the H100; PERF.md);
-// - both candidate placements' neighbours and inputs are read before
-//   Suzuki's rule picks one, so the loads do not wait for the decision;
+// - both candidate placements' neighbours and inputs are read, and both
+//   placements' emissions (the correctly rounded division among them) and
+//   diagonal and up sums computed, before Suzuki's rule picks one: after
+//   the rule the chain only selects, adds the left move, takes two maxes
+//   and stores (the emission after the rule cost ~265 ns a band; PERF.md);
 // - the backtrace start is kept per thread (the thread that owns the
 //   last-k-mer cell of a band scores it from its register) and reduced
 //   over the block only at the end of a window, so no thread has serial
@@ -269,6 +272,18 @@ __device__ __forceinline__ int band_step(float (*rows)[PAD], int bi, int o,
   const float4 kb = st.km[(s.ll_k + o + 1) & RING_MASK];
   const float ea = st.ev[(s.ll_e - o) & RING_MASK];
   const float eb = st.ev[(s.ll_e + 1 - o) & RING_MASK];
+  // both placements scored before the rule: the emission and the
+  // diagonal and up sums of a right move (k-mer kb, event ea) and of a
+  // down move (ka, eb); the rule then only selects (the same operations
+  // on the same operands: the selected values are the same bits)
+  const float a_r = __fdiv_rn(__fsub_rn(ea, kb.x), kb.y);
+  const float a_d = __fdiv_rn(__fsub_rn(eb, ka.x), ka.y);
+  const float em_r = __fadd_rn(kb.z, __fmul_rn(__fmul_rn(-0.5f, a_r), a_r));
+  const float em_d = __fadd_rn(ka.z, __fmul_rn(__fmul_rn(-0.5f, a_d), a_d));
+  const float sd_r = __fadd_rn(__fadd_rn(q_1, rd.lp_step), em_r);
+  const float su_r = __fadd_rn(__fadd_rn(p_p1, rd.lp_stay), em_r);
+  const float sd_d = __fadd_rn(__fadd_rn(q_0, rd.lp_step), em_d);
+  const float su_d = __fadd_rn(__fadd_rn(p_0, rd.lp_stay), em_d);
   // Suzuki's rule from the previous band's edge cells
   const float llv = prev[0], urv = prev[BW - 1];
   const bool both_ob = (llv == -CUDART_INF_F) && (urv == -CUDART_INF_F);
@@ -279,25 +294,19 @@ __device__ __forceinline__ int band_step(float (*rows)[PAD], int bi, int o,
 
   const int e = s.ll_e - o;
   const int k = s.ll_k + o;
-  float row = -CUDART_INF_F;
-  int frm = FROM_D;
-  if (o < BW && k >= 0 && k < rd.nk && e >= 0 && e < rd.ne) {
-    const float4 km = right ? kb : ka;      // k-mer k
-    const float ev = right ? ea : eb;       // event e
-    const float a = __fdiv_rn(__fsub_rn(ev, km.x), km.y);
-    const float em = __fadd_rn(km.z, __fmul_rn(__fmul_rn(-0.5f, a), a));
-    const float up = right ? p_p1 : p_0;     // (k, e-1) in band bi-1
-    const float left = right ? p_0 : p_m1;   // (k-1, e) in band bi-1
-    const float diag = right ? q_1 : q_0;    // (k-1, e-1) in band bi-2
-    const float s_d = __fadd_rn(__fadd_rn(diag, rd.lp_step), em);
-    const float s_u = __fadd_rn(__fadd_rn(up, rd.lp_stay), em);
-    const float s_l = __fadd_rn(left, rd.lp_skip);
-    float mx = fmaxf(s_d, s_u);
-    frm = (mx == s_u) ? FROM_U : FROM_D;
-    mx = fmaxf(mx, s_l);
-    if (mx == s_l) frm = FROM_L;
-    row = mx;
-  }
+  // diag (k-1, e-1) in band bi-2 and up (k, e-1) in band bi-1, scored;
+  // left (k-1, e) in band bi-1.  Branch-free, so that the scores above
+  // stay ahead of the rule; a cell outside the band keeps -inf, FROM_D.
+  const bool valid = o < BW && k >= 0 && k < rd.nk && e >= 0 && e < rd.ne;
+  const float s_d = right ? sd_r : sd_d;
+  const float s_u = right ? su_r : su_d;
+  const float s_l = __fadd_rn(right ? p_0 : p_m1, rd.lp_skip);
+  float mx = fmaxf(s_d, s_u);
+  int best = (mx == s_u) ? FROM_U : FROM_D;
+  mx = fmaxf(mx, s_l);
+  if (mx == s_l) best = FROM_L;
+  float row = valid ? mx : -CUDART_INF_F;
+  int frm = valid ? best : FROM_D;
   // trim column: cell (k=-1, e=bi-1) while the band straddles it
   const int trim_off = -1 - s.ll_k;
   const int trim_ev = s.ll_e - trim_off;

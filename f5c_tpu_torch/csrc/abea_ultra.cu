@@ -5,8 +5,9 @@
 // abea_fill_window_kernel replaces the TPU kernel
 // f5c_tpu/ops/abea_ultra.py:_fill_kernel_win (launched by fill_window;
 // K3), with the k-mer ranks of the packed sequences (K11) fused in as in
-// the unchunked fill; abea_walk_window_kernel replaces its XLA walk
-// walk_window (K10).
+// the unchunked fill; its XLA walk walk_window (K10) is replaced by the
+// tiled walk of abea_walk_tiled.cu (abea_walk_window_kernel below was
+// K10's first port).
 // The plain PyTorch versions, the state record and the function that pairs
 // them are f5c_tpu_torch/ops/abea_ultra.py.  Algorithm reference:
 // align.c:180-559.
@@ -39,7 +40,9 @@
 // are busy; the design keeps the chain inside one launch (no host round
 // trip per window) and the step on shared memory.
 //
-// abea_walk_window_kernel: one warp per read walks down one window from
+// abea_walk_window_kernel (a yardstick since the windowed path walks each
+// window with the tiled walk of abea_walk_tiled.cu, which replaces K10;
+// held and timed beside it): one warp per read walks down one window from
 // its carried (k, e, n) while e + k + 2 >= base, the cond of walk_window,
 // and writes its 2-bit directions straight into the read's output at bit
 // offset 2n -- abea_walk.cuh's walk, shared with the unchunked walk.  A

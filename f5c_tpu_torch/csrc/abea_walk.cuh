@@ -1,8 +1,10 @@
-// The ABEA backtrace walk shared by the unchunked walk (abea.cu) and the
-// walk across one window of ultra-long reads (abea_ultra.cu), so that the
-// two kernels cannot drift apart.  The plain PyTorch versions are
-// f5c_tpu_torch/ops/abea.py:abea_walk_plain and
-// ops/abea_ultra.py:walk_window_plain.
+// The one-warp ABEA backtrace walk shared by the unchunked walk (abea.cu:
+// the route of reads under ops/abea_cuda.py TILED_MIN_BANDS bands) and
+// the one-warp walk across one window of ultra-long reads (abea_ultra.cu,
+// a yardstick: the windowed path walks each window with the tiled walk
+// of abea_walk_tiled.cu), so that the two kernels cannot drift apart.
+// The plain PyTorch versions are f5c_tpu_torch/ops/abea.py:abea_walk_plain
+// and ops/abea_ultra.py:walk_window_plain.
 //
 // One warp walks one read.  What bounds a walk is its chain of dependent
 // steps: a step reads the band's lower-left k-mer, then the trace cell it

@@ -42,7 +42,8 @@ _i64 = ctypes.c_longlong
 _SIGNATURES = {
     "f5c_abea_fill": [_vp] * 14 + [_int] * 4 + [_vp],
     "f5c_abea_ranks": [_vp] * 4 + [_int] * 2 + [_vp],
-    "f5c_abea_walk": [_vp] * 8 + [_int] * 2 + [_vp],
+    "f5c_abea_walk": [_vp] * 9 + [_int] * 2 + [_vp],
+    "f5c_abea_walk_tiled": [_vp] * 15 + [_int] * 8 + [_vp],
     "f5c_hmm_forward_meta": [_vp] * 9 + [_i64] + [_int] * 7 + [_vp],
     "f5c_hmm_window_ranks": [_vp] * 4 + [_i64] + [_int] * 3 + [_vp],
     "f5c_abea_fill_window": [_vp] * 15 + [_int] * 7 + [_vp],
@@ -57,10 +58,10 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}
-# while a caller holds a list here, the wrappers that wait on the card
-# (K8's and K9's) append a (start, stop) pair of CUDA events around each
-# of their launches: the kernels' own time, apart from their wrappers'
-# host work (chip_smoke.py times them so)
+# while a caller holds a list here, the wrappers of K8, K9 and the walks
+# (K4, K10) append a (start, stop) pair of CUDA events around each of
+# their launches: the kernels' own time, apart from their wrappers' host
+# work (chip_smoke.py times them so)
 launch_spans = None
 
 

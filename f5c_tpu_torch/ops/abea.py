@@ -34,6 +34,12 @@ a common length):
   bits, at ``flat[byte_off[i] : byte_off[i+1]]`` (capacity
   ceil((n_events + n_kmers)/4)), and its length ``n[i]`` -- exactly what
   native ``decode_qc_postalign`` consumes.
+
+The walk has two plain versions with one result: ``abea_walk_plain``,
+step by step, and ``abea_walk_tiled_plain``, the three phases of the
+tile-parallel walk of csrc/abea_walk_tiled.cu (``walk_tiled_maps``,
+``walk_tiled_chase``, ``walk_tiled_emit``; the comment above
+MAP_STOP).
 """
 
 from __future__ import annotations
@@ -137,6 +143,353 @@ def walk_smem_bytes(tile: int = WALK_TILE) -> int:
     """Dynamic shared memory of a walk block: two tiles (double-buffered)
     of packed trace rows (TRACE_ROW_BYTES) and lower-left k-mers (i32)."""
     return 2 * tile * (TRACE_ROW_BYTES + 4)
+
+
+# The tiled walk (csrc/abea_walk_tiled.cu) cuts a read's trace into tiles
+# of WALK_TILE rows from row 0: tile j holds rows [jT, jT + T).  The walk
+# only descends, one or two bands a step, so it enters tile j (from the
+# tile above) at one of the cells of its top two rows, and where it
+# leaves the tile depends on nothing outside it.  Three phases:
+# (a) maps: for each entry cell (row hi - 1 - sel, offset o < BW from the
+#     row's llk) of every tile below the start's, walk to where the path
+#     leaves the tile, and encode that exit as an entry of the tile below
+#     (MAP_* below); the start cell gets such a walk of its own;
+# (b) the chase: from the start, follow the maps from tile to tile, and
+#     record each tile's entry and the steps before it (an exclusive scan);
+# (c) emission: re-walk each visited tile from its entry and write its
+#     directions at their final position; the tile that holds a byte's
+#     first step writes the byte (walking on past its tile to finish it),
+#     the walk's first tile also the byte a carried position starts in.
+# A path that leaves a tile outside the mapped cells (never on a fill's
+# own trace: a finite cell points at a finite one, which lies in its
+# band) is chased cell by cell.
+MAP_STOP = 1 << 15       # the walk ended in the tile (steps in bits 0-13)
+MAP_OFF = 1 << 14        # ... or left it outside the mapped cells
+MAP_ENTRIES = 2 * BW     # entry cells of a tile: its top two rows, o < BW
+EMIT_BELOW = 6           # rows under a tile that finishing a byte may read
+CHASE_GROUP = 32         # tiles' maps a chase stage holds
+EMIT_WARPS = 4           # tiles an emission block walks (a warp each)
+
+
+def walk_map_reach(j: int, tile: int = WALK_TILE):
+    """Rows a map block of tile j reads: trace and llk of [lo, hi), and
+    the llk of the two rows under it (its exits), so (lo - 2, lo, hi)."""
+    return j * tile - 2, j * tile, j * tile + tile
+
+
+def walk_emit_reach(j: int, tile: int = WALK_TILE):
+    """Rows an emission warp of tile j reads, [lo - EMIT_BELOW, hi): a
+    byte finished past the tile takes at most 3 steps, 6 rows."""
+    return j * tile - EMIT_BELOW, j * tile + tile
+
+
+def walk_map_smem_bytes(tile: int = WALK_TILE) -> int:
+    """Shared memory of a map block: the tile's trace rows and llk, and
+    the llk of the two rows under it."""
+    return tile * (TRACE_ROW_BYTES + 4) + 2 * 4
+
+
+def walk_chase_smem_bytes(group: int = CHASE_GROUP) -> int:
+    """Shared memory of a chase block: two stages of ``group`` tiles'
+    maps (u16 entries)."""
+    return 2 * group * MAP_ENTRIES * 2
+
+
+def walk_emit_smem_bytes(tile: int = WALK_TILE) -> int:
+    """Shared memory of an emission block: EMIT_WARPS tiles' rows of
+    ``walk_emit_reach``, trace and llk."""
+    return EMIT_WARPS * (tile + EMIT_BELOW) * (TRACE_ROW_BYTES + 4)
+
+
+def walk_tiles_of(rows, tile: int = WALK_TILE):
+    """Tiles of reads of ``rows`` rows each: ceil(rows / tile)."""
+    return -(-rows // tile)
+
+
+def _walk_in(tr, lk, row0, rows, base, lo, k, e, active, limit, record=None):
+    """Lockstep walk of many cells, each of its read (``row0`` its row 0,
+    ``rows`` its rows): from (k, e) while ``active``, the walk goes on
+    (k >= 0, e >= 0, v = e + k + 2 - base >= 0) and its row min(v,
+    rows - 1) >= ``lo``, at most ``limit`` steps (each, or None).  Returns
+    (k, e, steps, ended); ``record(s, live, d)`` sees each step."""
+    steps = torch.zeros_like(k)
+    s = 0
+    while True:
+        v = e + k + 2 - base
+        walking = (k >= 0) & (e >= 0) & (v >= 0)
+        live = active & walking & (torch.minimum(v, rows - 1) >= lo)
+        if limit is not None:
+            live &= steps < limit
+        if not bool(live.any()):
+            return k, e, steps, active & ~walking
+        r = row0 + torch.minimum(v, rows - 1).clamp(min=0)
+        o = (k - lk[r].long()).clamp(0, PAD - 1)
+        d = torch.where(live, trace_cell(tr, r, o), 0)
+        if record is not None:
+            record(s, live, d)
+        k = k - (live & (d != FROM_U)).long()
+        e = e - (live & (d != FROM_L)).long()
+        steps = steps + live.long()
+        s += 1
+
+
+def _exit_code(lk, row0, base, lo, k, e, steps, ended):
+    """The MAP_* code of walks that left their tile (whose low row is
+    ``lo``) at (k, e), or ended there."""
+    rr = e + k + 2 - base                      # lo - 1 or lo - 2
+    o = k - lk[(row0 + rr).clamp(0, lk.shape[0] - 1)].long()
+    on = ~ended & (o >= 0) & (o < BW)
+    cont = o.clamp(0, 127) | ((lo - 1 - rr).clamp(0, 1) << 7) \
+        | ((steps - 1).clamp(min=0) << 8)
+    stop = MAP_STOP | torch.where(ended, 0, MAP_OFF) | steps
+    return torch.where(on, cont, stop)
+
+
+def _walk_start_cell(view):
+    """Each read's first cell, its start tile j_s (-1: no walk)."""
+    k, e = view["k0"], view["e0"]
+    v = e + k + 2 - view["base"]
+    walking = (k >= 0) & (e >= 0) & (v >= 0)
+    js = torch.minimum(v, view["rows"] - 1) // view["tile"]
+    return torch.where(walking, js, -1)
+
+
+def walk_tiled_maps(tr, lk, view):
+    """Phase (a): the map of every tile below its read's start tile,
+    int32 [n_tiles, 2, BW] (0 elsewhere), and the start walks' records
+    int64 [R, 2] (code, steps)."""
+    T, base = view["tile"], view["base"]
+    dev = lk.device
+    tile_off = view["tile_off"]
+    R = tile_off.shape[0] - 1
+    n_tiles = int(tile_off[-1]) if R else 0
+    maps = torch.zeros((n_tiles, 2, BW), dtype=torch.int32, device=dev)
+    js = _walk_start_cell(view)
+    q = torch.repeat_interleave(torch.arange(R, device=dev),
+                                tile_off[1:] - tile_off[:-1])
+    j = torch.arange(n_tiles, device=dev) - tile_off[:-1][q]
+    need = j < js[q]
+    tq, tj = q[need], j[need]
+    if tq.numel():
+        sel = torch.arange(2, device=dev).repeat_interleave(BW)
+        o = torch.arange(BW, device=dev).repeat(2)
+        qq = tq[:, None].expand(-1, MAP_ENTRIES)
+        lo = (tj * T)[:, None].expand(-1, MAP_ENTRIES)
+        r0 = view["row0"][qq]
+        rows = view["rows"][qq]
+        er = lo + T - 1 - sel
+        k = lk[r0 + er].long() + o
+        e = er + base - 2 - k
+        k, e, steps, ended = _walk_in(tr, lk, r0, rows, base, lo, k, e,
+                                      torch.ones_like(k, dtype=torch.bool),
+                                      None)
+        code = _exit_code(lk, r0, base, lo, k, e, steps, ended)
+        maps[need] = code.reshape(-1, 2, BW).to(torch.int32)
+    # the start walks: from each read's first cell out of its start tile
+    k, e = view["k0"].clone(), view["e0"].clone()
+    lo = js.clamp(min=0) * T
+    k, e, steps, ended = _walk_in(tr, lk, view["row0"], view["rows"], base,
+                                  lo, k, e, js >= 0, None)
+    # the code without its step fields, the steps apart: with the
+    # last-row clamp a start walk may take more steps than a tile has rows
+    code = _exit_code(lk, view["row0"], base, lo, k, e, torch.ones_like(k),
+                      ended | (js < 0))
+    code = torch.where((code & MAP_STOP) != 0, code & ~0x3fff, code)
+    start = torch.stack([code, steps], dim=1)
+    return maps, start
+
+
+def _walk_one(tr, lk, row0, rows, base, lo, k, e):
+    """One cell's walk out of a tile (the chase's cell-by-cell path):
+    (k, e, steps, ended) as Python ints."""
+    t = torch.tensor
+    dev = lk.device
+    out = _walk_in(tr, lk, t([row0], device=dev), t([rows], device=dev),
+                   base, lo, t([k], device=dev), t([e], device=dev),
+                   t([True], device=dev), None)
+    return tuple(int(x[0]) for x in out)
+
+
+ENT_MAPPED, ENT_EXACT = 1, 2
+
+
+def map_steps(code: int) -> int:
+    """The steps of a tile map's entry."""
+    return code & 0x3fff if code & MAP_STOP else (code >> 8) + 1
+
+
+def walk_tiled_chase(tr, lk, view, maps, start):
+    """Phase (b): from each read's start, follow the maps from tile to
+    tile.  Returns the entries int64 [n_tiles, 4] (kind, a, b, n): kind
+    ENT_MAPPED (a, b) = (sel, o), ENT_EXACT (a, b) = (k, e), n the steps
+    before the tile (rows of tiles not visited: 0), and the spans int64
+    [R, 2] (j_end, j_s) of the visited tiles (j_end > j_s: no walk)."""
+    T, base = view["tile"], view["base"]
+    tile_off = view["tile_off"].tolist()
+    R = len(tile_off) - 1
+    ent = [[0, 0, 0, 0] for _ in range(tile_off[-1] if R else 0)]
+    span = []
+    js_all = _walk_start_cell(view).tolist()
+    mp = maps.reshape(-1, MAP_ENTRIES).tolist()
+    st = start.tolist()
+    row0s, rowss = view["row0"].tolist(), view["rows"].tolist()
+    k0s, e0s, n0s = (view[x].tolist() for x in ("k0", "e0", "n0"))
+    llk = lk.tolist()
+    for q in range(R):
+        js, t0, row0 = js_all[q], tile_off[q], row0s[q]
+        if js < 0:
+            span.append([1, 0])
+            continue
+        j, k, e, n = js, k0s[q], e0s[q], n0s[q]
+        ent[t0 + j] = [ENT_EXACT, k, e, n]
+        code, steps = st[q]           # the start tile's exit, walked in (a)
+        while True:
+            if code is not None:
+                if not code & MAP_STOP:
+                    n += steps
+                    sel, o = (code >> 7) & 1, code & 127
+                    j -= 1
+                    ent[t0 + j] = [ENT_MAPPED, sel, o, n]
+                    code = mp[t0 + j][sel * BW + o]
+                    steps = map_steps(code)
+                    continue
+                if not code & MAP_OFF:
+                    n += steps
+                    break
+                if ent[t0 + j][0] == ENT_MAPPED:   # its cell, exactly
+                    er = j * T + T - 1 - sel
+                    k = llk[row0 + er] + o
+                    e = er + base - 2 - k
+            # cell by cell out of tile j
+            k, e, s, ended = _walk_one(tr, lk, row0, rowss[q], base, j * T,
+                                       k, e)
+            n += s
+            if ended:
+                break
+            er = e + k + 2 - base
+            o, sel = k - llk[row0 + er], j * T - 1 - er
+            j -= 1
+            if 0 <= o < BW:
+                ent[t0 + j] = [ENT_MAPPED, sel, o, n]
+                code = mp[t0 + j][sel * BW + o]
+                steps = map_steps(code)
+            else:
+                ent[t0 + j] = [ENT_EXACT, k, e, n]
+                code = None
+        span.append([j, js])
+    return (torch.tensor(ent, dtype=torch.int64).reshape(-1, 4),
+            torch.tensor(span, dtype=torch.int64).reshape(-1, 2))
+
+
+def walk_tiled_emit(tr, lk, view, ent, span, flat):
+    """Phase (c): re-walk each visited tile from its entry and write its
+    directions into ``flat`` (a copy) by the owner rule above.  Returns
+    (flat', k, e, n) with each read's final cell and length (the start's
+    where it does not walk)."""
+    T, base = view["tile"], view["base"]
+    dev = lk.device
+    tile_off = view["tile_off"]
+    R = tile_off.shape[0] - 1
+    n_tiles = ent.shape[0]
+    flat = flat.clone()
+    kf, ef, nf = view["k0"].clone(), view["e0"].clone(), view["n0"].clone()
+    q = torch.repeat_interleave(torch.arange(R, device=dev),
+                                tile_off[1:] - tile_off[:-1])
+    j = torch.arange(n_tiles, device=dev) - tile_off[:-1][q]
+    span = span.to(dev)
+    vis = (j >= span[q, 0]) & (j <= span[q, 1])
+    if not bool(vis.any()):
+        return flat, kf, ef, nf
+    ent = ent.to(dev)[vis]
+    q, j = q[vis], j[vis]
+    row0, rows = view["row0"][q], view["rows"][q]
+    lo = j * T
+    er = lo + T - 1 - ent[:, 1]
+    mapped = ent[:, 0] == ENT_MAPPED
+    km = lk[(row0 + er).clamp(max=lk.shape[0] - 1)].long() + ent[:, 2]
+    k = torch.where(mapped, km, ent[:, 1])
+    e = torch.where(mapped, er + base - 2 - km, ent[:, 2])
+    n0 = ent[:, 3]
+    first = j == span[q, 1]
+    own_from = torch.where(first, n0 & ~3, (n0 + 3) & ~3)
+    cap, b0 = view["cap"][q], view["out_off"][q]
+    pos_l, bits_l = [], []
+
+    def recorder(pos0):
+        """Keeps step s's bits at position pos0 + s where the tile owns
+        the byte (and it lies below cap)."""
+        def record(s, live, d):
+            pos = pos0 + s
+            use = live & (pos >= own_from) & ((pos >> 2) < cap)
+            pos_l.append((b0 + (pos >> 2))[use])
+            bits_l.append((d << (2 * (pos & 3)))[use])
+        return record
+
+    on = torch.ones_like(k, dtype=torch.bool)
+    k, e, steps, ended = _walk_in(tr, lk, row0, rows, base, lo, k, e, on,
+                                  None, recorder(n0))
+    n1 = n0 + steps
+    # finish the last byte begun in the tile: up to 3 steps past it
+    more = ~ended & ((n1 & 3) != 0) & (((n1 - 1) & ~3) >= own_from)
+    _walk_in(tr, lk, row0, rows, base, torch.full_like(lo, -(1 << 40)), k,
+             e, more, (4 - (n1 & 3)) & 3, recorder(n1))
+    acc = torch.zeros(flat.shape[0], dtype=torch.int64, device=dev)
+    acc.index_add_(0, torch.cat(pos_l), torch.cat(bits_l))
+    # the bytes each tile owns: [own_from / 4, (n1 - 1) / 4]
+    first_b = own_from >> 2
+    cnt = torch.where(n1 > own_from, ((n1 - 1) >> 2) - first_b + 1, 0)
+    cnt = torch.minimum(cnt, (cap - first_b).clamp(min=0))
+    tid = torch.repeat_interleave(torch.arange(cnt.shape[0], device=dev),
+                                  cnt)
+    b = first_b[tid] + torch.arange(tid.shape[0], device=dev) \
+        - torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+    g = b0[tid] + b
+    keep = first[tid] & (b == (n0[tid] >> 2)) & ((n0[tid] & 3) != 0)
+    old = torch.where(keep, flat[g].long(), 0)
+    flat[g] = (acc[g] | old).to(torch.uint8)
+    # the final cell, from the tile where the walk ends
+    kf[q[ended]], ef[q[ended]], nf[q[ended]] = k[ended], e[ended], n1[ended]
+    return flat, kf, ef, nf
+
+
+def walk_tiled_plain(tr, lk, view, flat):
+    """The three phases on ``view`` (see ``tiled_view``): (flat', k, e, n)."""
+    maps, start = walk_tiled_maps(tr, lk, view)
+    ent, span = walk_tiled_chase(tr, lk, view, maps, start)
+    return walk_tiled_emit(tr, lk, view, ent, span, flat)
+
+
+def tiled_view(row0, rows, base, k0, e0, n0, out_off, cap,
+               tile: int = WALK_TILE) -> dict:
+    """The reads of a tiled walk (int64 tensors [R]): row 0 of each in the
+    trace, its rows, its first cell (k0, e0, n0) and its output (``flat``
+    at ``out_off``, ``cap`` bytes); tile q's first slot in ``tile_off``."""
+    if not 2 <= tile <= 128:
+        raise ValueError(f"tile {tile} outside 2..128 (the map's fields)")
+    t = walk_tiles_of(rows, tile)
+    tile_off = torch.zeros(rows.shape[0] + 1, dtype=torch.int64,
+                           device=rows.device)
+    torch.cumsum(t, 0, out=tile_off[1:])
+    return dict(row0=row0, rows=rows, base=base, k0=k0, e0=e0, n0=n0,
+                out_off=out_off, cap=cap, tile=tile, tile_off=tile_off)
+
+
+def abea_walk_tiled_plain(trace, llk, band_off, start_e, rk_len, byte_off,
+                          tile: int = WALK_TILE):
+    """The tiled walk (the plain version of csrc/abea_walk_tiled.cu) with
+    the contract of ``abea_walk_plain``: (flat packed dirs u8
+    [byte_off[-1]], n i32 [B])."""
+    dev = trace.device
+    ok = start_e >= 0
+    band_off, byte_off = band_off.long(), byte_off.long()
+    view = tiled_view(band_off[:-1], band_off[1:] - band_off[:-1], 0,
+                      torch.where(ok, rk_len.long() - 1, -1),
+                      torch.where(ok, start_e.long(), -1),
+                      torch.zeros_like(band_off[:-1]), byte_off[:-1],
+                      byte_off[1:] - byte_off[:-1], tile)
+    flat = torch.zeros(int(byte_off[-1]), dtype=torch.uint8, device=dev)
+    flat, _, _, n = walk_tiled_plain(trace, llk, view, flat)
+    return flat, n.to(torch.int32)
 
 
 def read_params(ev_len: np.ndarray, rk_len: np.ndarray, scale: np.ndarray,

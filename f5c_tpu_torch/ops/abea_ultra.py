@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from .abea import (LL_K0, NEG_INF, PAD, FROM_L, FROM_U, START_OFF,
-                   TRACE_ROW_BYTES, _Band, band_offsets, byte_offsets,
-                   pack_trace, ragged_offsets, trace_cell)
+                   TRACE_ROW_BYTES, WALK_TILE, _Band, band_offsets,
+                   byte_offsets, pack_trace, ragged_offsets, tiled_view,
+                   trace_cell, walk_tiled_plain)
 from .seq_ranks import ranks_from_packed
 
 ST_LLK, ST_K2, ST_BEST_E, ST_BEST_S = 2 * PAD, 2 * PAD + 1, 2 * PAD + 2, \
@@ -168,6 +169,30 @@ def walk_window_plain(trace, llk, base: int, kst, flat, byte_off):
         k = k - (active & (f != FROM_U)).long()
         e = e - (active & (f != FROM_L)).long()
         n = n + active.long()
+    return torch.stack([k, e, n], dim=1).to(torch.int32), flat
+
+
+def window_view(B: int, win: int, base: int, kst, byte_off,
+                tile: int = WALK_TILE) -> dict:
+    """The tiled walk's view (``abea.tiled_view``) of one window of B
+    reads, row 0 of read i at row i * win, from the carried ``kst``."""
+    dev = kst.device
+    kst, byte_off = kst.long(), byte_off.long()
+    return tiled_view(torch.arange(B, device=dev) * win,
+                      torch.full((B,), win, dtype=torch.int64, device=dev),
+                      base, kst[:, 0], kst[:, 1], kst[:, 2], byte_off[:-1],
+                      byte_off[1:] - byte_off[:-1], tile)
+
+
+def walk_window_tiled_plain(trace, llk, base: int, kst, flat, byte_off,
+                            tile: int = WALK_TILE):
+    """The tiled walk of one window (the plain version of
+    csrc/abea_walk_tiled.cu's window launch) with the contract of
+    ``walk_window_plain``: (kst', flat')."""
+    B, win = trace.shape[0], trace.shape[1]
+    view = window_view(B, win, base, kst, byte_off, tile)
+    flat, k, e, n = walk_tiled_plain(
+        trace.reshape(B * win, TRACE_ROW_BYTES), llk.reshape(-1), view, flat)
     return torch.stack([k, e, n], dim=1).to(torch.int32), flat
 
 

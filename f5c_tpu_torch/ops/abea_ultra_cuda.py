@@ -13,12 +13,16 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .abea import TRACE_ROW_BYTES, fill_smem_bytes, walk_smem_bytes
-from .abea_cuda import check_seqs
+from .abea import (TRACE_ROW_BYTES, WALK_TILE, fill_smem_bytes,
+                   walk_smem_bytes, walk_tiles_of)
+from .abea_cuda import check_seqs, walk_tiled_launch
 from .abea_ultra import (STATE_WORDS, align_windowed,
                          fill_window_packed_plain, walk_window_plain)
 
-launches = {"abea_fill_window": 0, "abea_walk_window": 0}
+# "abea_walk_window" counts the tiled window walk (the windowed path's);
+# "abea_walk_window_warp" the one-warp window walk, a yardstick
+launches = {"abea_fill_window": 0, "abea_walk_window": 0,
+            "abea_walk_window_warp": 0}
 
 
 def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
@@ -86,13 +90,17 @@ def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
     return out, tr, lk
 
 
-def abea_walk_window(trace, llk, base: int, kst, flat, byte_off):
+def abea_walk_window(trace, llk, base: int, kst, flat, byte_off,
+                     route: str = "tiled", phases: int = 7, scratch=None):
     """Walk one window (the packed trace u8 [B, win, TRACE_ROW_BYTES],
     llk i32 [B, win] of bands base .. base+win-1; a trace of one byte a
     cell is refused) from ``kst`` i32 [B, 3] = (k, e, n) into the
     ragged 2-bit output ``flat``; the contract of
-    ``abea_ultra.walk_window_plain``.  Returns (kst', flat') as new
-    tensors (the kernel updates copies in place)."""
+    ``abea_ultra.walk_window_plain``.  On the card the tiled walk
+    (csrc/abea_walk_tiled.cu; ``phases`` and ``scratch`` as
+    ``abea_cuda.walk_tiled_launch`` takes them), or with ``route="warp"``
+    the one-warp walk (csrc/abea_ultra.cu).  Returns (kst', flat') as new
+    tensors (the kernels update copies in place)."""
     dev = trace.device
     B = kst.shape[0]
     for name, t, dt, nd in (
@@ -106,19 +114,32 @@ def abea_walk_window(trace, llk, base: int, kst, flat, byte_off):
             or llk.shape != trace.shape[:2] or kst.shape[1] != 3
             or byte_off.shape[0] != B + 1):
         raise ValueError("abea_walk_window: inconsistent shapes")
+    if route not in ("tiled", "warp"):
+        raise ValueError(f"abea_walk_window: unknown route {route!r}")
     if dev.type == "cpu":
         return walk_window_plain(trace, llk, base, kst, flat, byte_off)
     if dev.type != "cuda":
         raise ValueError(f"abea_walk_window: unsupported device {dev}")
     kst, flat = kst.clone(), flat.clone()
+    win = trace.shape[1]
+    if route == "tiled":
+        J = walk_tiles_of(win, WALK_TILE)
+        tile_off = torch.arange(B + 1, dtype=torch.int32, device=dev) * J
+        walk_tiled_launch(trace, llk, byte_off, flat, tile_off, B * J,
+                          kst=kst, base=base, win=win, phases=phases,
+                          scratch=scratch)
+        launches["abea_walk_window"] += 1
+        return kst, flat
     lib = _build.library()
     with _build.device_guard(dev):
+        span = _build.span_start(dev)
         err = lib.f5c_abea_walk_window(
             trace.data_ptr(), llk.data_ptr(), kst.data_ptr(),
-            byte_off.data_ptr(), flat.data_ptr(), base, trace.shape[1], B,
+            byte_off.data_ptr(), flat.data_ptr(), base, win, B,
             walk_smem_bytes(), _build.stream_handle(dev))
+        _build.span_stop(span, dev)
     _build.check_error(lib, "f5c_abea_walk_window", err)
-    launches["abea_walk_window"] += 1
+    launches["abea_walk_window_warp"] += 1
     return kst, flat
 
 

@@ -822,7 +822,8 @@ class Pipeline:
             self.stage_detail["align.ultra_reads"] += len(todo)
         else:
             flat, start_e, n = abea_cuda.abea_align(
-                *args, int(band_off[-1]), int(byte_off[-1]))
+                *args, int(band_off[-1]), int(byte_off[-1]),
+                np.diff(band_off))
         self.stage_detail["align.n_dispatch"] += 1
         self.stage_detail["align.band_cells"] += float(band_off[-1]) * 128
         nbytes = slab.nbytes + packed.nbytes

@@ -19,7 +19,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .ops.abea import band_offsets, byte_offsets, ragged_offsets, read_params
+from .ops.abea import (PAD, band_offsets, byte_offsets, pack_trace,
+                       ragged_offsets, read_params)
 from .ops.hmm import transition_params
 from .ops.hmm_cuda import order_windows
 from .ops.hmm_meta import (RT_LP_STAY, RT_LP_STEP, RT_RC, RT_SCALE, RT_SHIFT,
@@ -74,6 +75,94 @@ def abea_inputs(seqs, events, model, scale=None, shift=None) -> dict:
         params=read_params(ev_len, rk_len, scale, shift),
         band_off=band_off, byte_off=byte_off,
         n_bands=int(band_off[-1]), n_bytes=int(byte_off[-1]))
+
+
+def _random_rows(rng, n: int):
+    """n trace rows of random directions (0, 1, 2: a walk always
+    descends) and llk that moves by 0 or 1 a band, as a fill's does."""
+    llk = np.cumsum(rng.random(n) < 0.5) - 51 + int(rng.integers(-3, 3))
+    dirs = rng.choice(3, size=(n, PAD), p=[0.4, 0.3, 0.3]).astype(np.uint8)
+    return dirs, llk.astype(np.int32)
+
+
+def walk_cases(rng, n_bands) -> dict:
+    """Unchunked walk inputs over random traces (``ops/abea.py`` layout,
+    NumPy): a read of each band count in ``n_bands``, started at a
+    random event (one in ten, and the last, at -1: no walk).  Its paths wander off the
+    band, where a fill's never go (the tiled walk's cell-by-cell chase)."""
+    nbs = np.asarray(n_bands, np.int64)
+    rows = [_random_rows(rng, int(nb)) for nb in nbs]
+    rk_len = np.array([max(1, int(nb * rng.uniform(0.2, 0.6)))
+                       for nb in nbs], np.int32)
+    ev_len = (nbs - rk_len - 2).astype(np.int32)
+    start_e = np.array([rng.integers(0, max(1, ne)) for ne in ev_len],
+                       np.int32)
+    start_e[rng.random(nbs.shape[0]) < 0.1] = -1
+    start_e[-1] = -1
+    byte_off = byte_offsets(ev_len, rk_len)
+    return dict(
+        trace=pack_trace(torch.as_tensor(np.concatenate([d for d, _ in rows])
+                                         )).numpy(),
+        llk=np.concatenate([lk for _, lk in rows]),
+        band_off=band_offsets(ev_len, rk_len), start_e=start_e,
+        rk_len=rk_len, byte_off=byte_off, n_bytes=int(byte_off[-1]))
+
+
+def _window_steps(dirs, llk, base: int, k: int, e: int, cap: int) -> int:
+    """Steps of one window's walk from (k, e) (the last-row clamp
+    included), or cap + 1 once it passes ``cap``."""
+    win = dirs.shape[0]
+    steps = 0
+    while k >= 0 and e >= 0 and e + k + 2 - base >= 0 and steps <= cap:
+        r = min(e + k + 2 - base, win - 1)
+        d = dirs[r, min(max(k - llk[r], 0), PAD - 1)]
+        k -= d != 1
+        e -= d != 2
+        steps += 1
+    return steps
+
+
+def window_walk_cases(rng, B: int, win: int, base: int) -> dict:
+    """One window's walk inputs over random traces (``ops/abea_ultra.py``
+    walk_window layout, NumPy): each read carries a random (k, e, n) --
+    read 0 just above the window's last row (the last-row clamp), others
+    below its first row or with k < 0 (no walk) -- and an output whose
+    carried byte holds random low bits below n (what an earlier window
+    wrote) and zeros above.  Every walk takes at most ``win`` steps, as a
+    window's walk does (the JAX walk_window's bound)."""
+    rows = [_random_rows(rng, win) for _ in range(B)]
+    k = np.zeros(B, np.int64)
+    e = np.zeros(B, np.int64)
+    for i, (dirs, llk) in enumerate(rows):
+        while True:
+            if i == 0:
+                k[i] = rng.integers(0, max(1, win // 3))
+                v = win + int(rng.integers(0, 3))
+            else:
+                k[i] = rng.integers(-1, 200)
+                v = int(rng.integers(-2, win + 20))
+            e[i] = v + base - 2 - k[i]
+            steps = _window_steps(dirs, llk, base, int(k[i]), int(e[i]),
+                                  win)
+            if steps <= win and (i > 0 or steps > 0):
+                break
+    n = rng.integers(0, 37, B)
+    n[0] |= 1                                # mid-byte
+    cap = rng.integers(5, 200, B)
+    byte_off = ragged_offsets(cap)
+    flat = np.zeros(int(cap.sum()), np.uint8)
+    for i in range(B):
+        if n[i] // 4 < cap[i]:
+            flat[byte_off[i]:byte_off[i] + n[i] // 4] = rng.integers(
+                0, 256, n[i] // 4)
+            flat[byte_off[i] + n[i] // 4] = rng.integers(
+                0, 1 << (2 * (n[i] % 4)))
+    return dict(
+        trace=pack_trace(torch.as_tensor(np.stack([d for d, _ in rows]))
+                         ).numpy(),
+        llk=np.stack([lk for _, lk in rows]),
+        kst=np.stack([k, e, n], axis=1).astype(np.int32), flat=flat,
+        byte_off=byte_off, base=base)
 
 
 def nucleotide_model(k: int):

@@ -16,6 +16,14 @@ give what the plain fills give on ranks_from_packed's ranks and on the
 NumPy ranker's, on reads at every offset mod 4 of the packed buffer (the
 ring kernel's case has ranks but no sequences, so it runs the plain fill
 and walk on its ranks).
+
+The tiled walk's plain version (abea_walk_tiled_plain: tile maps, chase,
+emission) equals abea_walk_plain byte for byte and the JAX XLA walk on
+the mixed reads and on the golden reads' launch (as the port's Pipeline
+makes it on the CPU), at tiles of 4, 16 and 128 bands, and on random
+traces whose paths leave the band (synthetic.walk_cases), where its
+phases' records show every case: no walk, a walk of one tile, walks
+over many tiles, the chase's cell-by-cell path.
 """
 
 import numpy as np
@@ -291,3 +299,136 @@ def test_wrappers_on_packed_seqs_match_the_ranked_path(k):
         *new, t["byte_off"], x["n_bytes"], nb_max, win), aligned,
         abea_ultra.align_windowed(*ranked, t["byte_off"], x["n_bytes"],
                                   nb_max, win))
+
+
+@pytest.fixture(scope="module")
+def golden_batch(tmp_path_factory):
+    """The golden reads' ABEA launch as the port's Pipeline makes it on the
+    CPU (its abea_align arguments), and the same reads as the JAX
+    package's XLA fill takes them, with that fill."""
+    import io
+    import os
+
+    from test_golden_e2e import GOLDEN
+
+    from f5c_tpu.ops import abea
+    from f5c_tpu_torch import datasets
+    from f5c_tpu_torch.pipeline.runner import Options, Pipeline
+
+    tmp = str(tmp_path_factory.mktemp("golden_walk"))
+    datasets.copy_dataset(
+        datasets.dataset(GOLDEN, slow5=datasets.GOLDEN_SIGNALS_ZLIB), tmp)
+    calls = []
+    align = abea_cuda.abea_align
+
+    def spy(*a, **kw):
+        calls.append(a)
+        return align(*a, **kw)
+
+    opt = Options(min_mapq=0, meth_out_version=1,
+                  slow5_path=os.path.join(tmp, "signals.blow5"))
+    pipe = Pipeline(os.path.join(tmp, "reads.bam"),
+                    os.path.join(tmp, "genome.fa"),
+                    os.path.join(tmp, "reads.fasta"), opt,
+                    device=torch.device("cpu"))
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(abea_cuda, "abea_align", spy)
+        pipe.call_methylation(out=io.StringIO())
+    (ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k, lm, ls, lls,
+     params, band_off, byte_off, n_bands, n_bytes, *_) = calls[0]
+    x = dict(ev_pool=ev_pool, ev_off=ev_off, ev_len=ev_len,
+             rk_pool=ranks_from_packed(seq_packed, k), rk_off=seq_off,
+             rk_len=rk_len, level_mean=lm, level_stdv=ls,
+             level_log_stdv=lls, params=params, band_off=band_off,
+             byte_off=byte_off)
+    model = builtin_model("dna_r9_nucleotide")
+    B = ev_len.shape[0]
+    events = [ev_pool[ev_off[i]:ev_off[i] + ev_len[i]].numpy()
+              for i in range(B)]
+    ranks = [x["rk_pool"][seq_off[i]:seq_off[i] + rk_len[i]].numpy()
+             for i in range(B)]
+    scalings = [Scalings(shift=float(params[i, 1]),
+                         scale=float(params[i, 0])) for i in range(B)]
+    batch = abea.make_batch(events, ranks, model, scalings=scalings)
+    E = batch.event_means.shape[1] - 2 * abea.PAD
+    K = batch.kmer_mean.shape[1] - 2 * abea.PAD
+    return x, batch, abea.abea_fill(batch, n_bands=E + K + 2), E, K
+
+
+def _plain_fill(x):
+    t = _tensors(x)
+    return port_abea.abea_fill_plain(*(t[k] for k in (
+        "ev_pool", "ev_off", "ev_len", "rk_pool", "rk_off", "rk_len",
+        *TABLES)))
+
+
+@pytest.mark.parametrize("tile", [4, 16, 128])
+@pytest.mark.parametrize("which", ["mixed", "golden"])
+def test_tiled_walk_matches_plain_and_xla(request, which, tile):
+    """abea_walk_tiled_plain (maps, chase, emission) on the plain fill of
+    the mixed reads and of the golden reads equals abea_walk_plain byte
+    for byte (directions, n, every byte up to each read's cap) and the
+    JAX XLA walk's first n directions, at tiles of 4, 16 and 128 bands:
+    paths cross many tile edges by one-band and two-band steps, and
+    reads of 128 bands or fewer are one tile."""
+    from f5c_tpu.ops import abea
+
+    if which == "mixed":
+        _model, _s, _e, _a, _b, x, _ = request.getfixturevalue("mixed")
+        batch, fill, E, K = request.getfixturevalue("xla_fill")
+    else:
+        x, batch, fill, E, K = request.getfixturevalue("golden_batch")
+    t = _tensors(x)
+    trace, llk, start_e = _plain_fill(x)
+    args = (trace, llk, t["band_off"], start_e, t["rk_len"], t["byte_off"])
+    flat, n = port_abea.abea_walk_plain(*args)
+    got_flat, got_n = port_abea.abea_walk_tiled_plain(*args, tile)
+    assert torch.equal(got_n, n) and torch.equal(got_flat, flat)
+    packed, start_x, n_x, *_ = abea.abea_backtrace_packed(
+        fill, batch, max_pairs=-(-(E + K) // 4) * 4)
+    packed, n_x = np.asarray(packed), np.asarray(n_x)
+    np.testing.assert_array_equal(got_n.numpy(), n_x)
+    np.testing.assert_array_equal(start_e.numpy(), np.asarray(start_x))
+    nb = np.diff(np.asarray(x["band_off"]))
+    assert (nb > 4 * tile).any() or tile == 128
+    for i in range(len(n_x)):
+        np.testing.assert_array_equal(
+            _dirs(got_flat.numpy(), int(x["byte_off"][i]), int(n_x[i])),
+            _dirs(packed[i], 0, int(n_x[i])))
+
+
+@pytest.mark.parametrize("tile", [4, 16, 128])
+def test_tiled_walk_phases_on_random_traces(tile):
+    """On random traces (synthetic.walk_cases), whose paths leave the
+    band: the three plain phases equal abea_walk_plain byte for byte,
+    and the cases are all there -- a read that does not walk
+    (start_e = -1: no tile visited), a walk of one tile, walks that end
+    inside a tile below their start's, and paths that leave a tile
+    outside the mapped cells (chased cell by cell)."""
+    rng = np.random.default_rng(60 + tile)
+    x = _tensors(synthetic.walk_cases(
+        rng, [3, 40, 128, 129, 300, 1000, 2600, 90]))
+    args = tuple(x[k] for k in ("trace", "llk", "band_off", "start_e",
+                                "rk_len", "byte_off"))
+    want = port_abea.abea_walk_plain(*args)
+    got = port_abea.abea_walk_tiled_plain(*args, tile)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    bo = x["band_off"]
+    ok = x["start_e"] >= 0
+    view = port_abea.tiled_view(
+        bo[:-1], bo[1:] - bo[:-1], 0,
+        torch.where(ok, x["rk_len"].long() - 1, -1),
+        torch.where(ok, x["start_e"].long(), -1), torch.zeros_like(bo[:-1]),
+        x["byte_off"][:-1], x["byte_off"][1:] - x["byte_off"][:-1], tile)
+    maps, start = port_abea.walk_tiled_maps(x["trace"], x["llk"], view)
+    ent, span = port_abea.walk_tiled_chase(x["trace"], x["llk"], view, maps,
+                                           start)
+    j_end, j_s = span[:, 0], span[:, 1]
+    assert (j_end > j_s).any()                      # no walk
+    assert ((j_end == j_s) & ok).any()              # one tile
+    assert (j_end < j_s).any()                      # many tiles
+    starts = view["tile_off"][:-1] + j_s.clamp(min=0)
+    exact = ent[:, 0] == port_abea.ENT_EXACT
+    exact[starts[j_s >= 0]] = False
+    assert exact.any()                              # the cell-by-cell chase
+    assert ((start[:, 0] & port_abea.MAP_STOP) != 0).any()

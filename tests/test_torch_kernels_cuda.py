@@ -16,7 +16,11 @@ and the event detector's peak scan alone (the probe) to the sequential
 scan and its plain model's rounds, its sums and tracks alone (their probe)
 to their plain model, on a read of 2.75 M samples, at the sample budget,
 on reads of 0, 1 and 5 samples and where the sums round (a refused launch
-raises).
+raises).  The unchunked walk by each route (the tile-parallel walk of
+csrc/abea_walk_tiled.cu, the one-warp walk, the crossover's mix) and every
+window walk by both are held to the plain walks and the plain tiled walk
+on fills and on random traces (the chase's cell-by-cell path, the
+last-row clamp); K1 and both K3 instances on a 13,600-band chain.
 """
 
 import numpy as np
@@ -77,6 +81,125 @@ def test_abea_kernels_match_plain(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(want[1].min()) > 0
+
+
+def _same(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_abea_tiled_walk_matches_warp_and_plain(cuda):
+    """The unchunked walk by each route (the one-warp kernel, the tiled
+    kernels, and the crossover's mix) against the plain walk and the
+    plain tiled walk, bit for bit: on fills of mixed reads (one of
+    13,600 bands, 107 tiles; one-tile reads) and on random traces whose
+    paths leave the mapped cells (the chase's cell-by-cell path)."""
+    model = builtin_model("dna_r9_nucleotide")
+    rng = np.random.default_rng(15)
+    n_kmers = [20, 64, 129, 700, 1500, 45, 5000, 900]
+    seqs, events = synthetic.abea_reads(rng, n_kmers, model, unrelated=(5,))
+    x = _on(synthetic.abea_inputs(seqs, events, model), cuda)
+    trace, llk, start_e = abea_cuda.abea_fill(*_fill_args(x), x["n_bands"])
+    cases = [(trace, llk, x["band_off"], start_e, x["rk_len"],
+              x["byte_off"], x["n_bytes"])]
+    r = _on(synthetic.walk_cases(rng, [3, 50, 128, 129, 400, 3000, 7000]),
+            cuda)
+    cases.append(tuple(r[k] for k in ("trace", "llk", "band_off", "start_e",
+                                       "rk_len", "byte_off", "n_bytes")))
+    for args in cases:
+        want = abea.abea_walk_plain(*args[:-1])
+        assert _same(abea.abea_walk_tiled_plain(*args[:-1]), want)
+        bands = np.diff(args[2].cpu().numpy())
+        assert (bands >= abea_cuda.TILED_MIN_BANDS).any()
+        assert (bands < abea_cuda.TILED_MIN_BANDS).any()
+        for route in ("warp", "tiled", None):
+            got = abea_cuda.abea_walk(*args, route=route)
+            torch.cuda.synchronize()
+            assert _same(got, want), route
+
+
+@pytest.mark.parametrize("win", [97, 1000, 4097])
+def test_abea_tiled_window_walk_matches_warp_and_plain(cuda, win):
+    """Every window of the windowed path, last to first, walked by the
+    tiled kernels, the one-warp kernel and the plain walk from the same
+    carried (k, e, n): the same (k, e, n) and bytes after each window
+    (windows that start mid-byte included); then random windows whose
+    walks start above the last row (the clamp) or do not walk."""
+    from f5c_tpu_torch.ops import abea_ultra, abea_ultra_cuda
+
+    model = builtin_model("dna_r9_nucleotide")
+    rng = np.random.default_rng(16)
+    seqs, events = synthetic.abea_reads(rng, [20, 700, 1500, 45, 3000],
+                                        model, unrelated=(3,))
+    x = _on(synthetic.abea_inputs(seqs, events, model), cuda)
+    args = _fill_args(x)
+    nb_max = int(np.diff(x["band_off"].cpu().numpy()).max())
+    nw = abea_ultra.n_windows(nb_max, win)
+    s0 = abea_ultra.initial_state(x["params"])
+    ckpt, _, _ = abea_ultra_cuda.abea_fill_window(*args, s0, 2, win, nw,
+                                                  False)
+    start_e = ckpt[:, -1].view(torch.int32)[:, abea_ultra.ST_BEST_E]
+    kst = abea_ultra.walk_start(start_e.contiguous(), x["rk_len"])
+    flat = torch.zeros(x["n_bytes"], dtype=torch.uint8, device=cuda)
+    mid_byte = 0
+    for w in range(nw - 1, -1, -1):
+        state = s0 if w == 0 else ckpt[:, w - 1].contiguous()
+        base = 2 + w * win
+        _, trace, llk = abea_ultra_cuda.abea_fill_window(*args, state, base,
+                                                         win, 1, True)
+        mid_byte += int((kst[:, 2] % 4 != 0).sum())
+        want = abea_ultra.walk_window_plain(trace, llk, base, kst, flat,
+                                            x["byte_off"])
+        warp = abea_ultra_cuda.abea_walk_window(trace, llk, base, kst, flat,
+                                                x["byte_off"], route="warp")
+        got = abea_ultra_cuda.abea_walk_window(trace, llk, base, kst, flat,
+                                               x["byte_off"])
+        torch.cuda.synchronize()
+        assert _same(warp, want) and _same(got, want), w
+        kst, flat = want
+    if win == 97:   # many windows: some walks carry n % 4 != 0
+        assert mid_byte > 0
+    y = _on(synthetic.window_walk_cases(rng, 8, win, 40), cuda)
+    wa = (y["trace"], y["llk"], 40, y["kst"], y["flat"], y["byte_off"])
+    want = abea_ultra.walk_window_plain(*wa)
+    assert _same(abea_ultra.walk_window_tiled_plain(*wa), want)
+    for route in ("warp", "tiled"):
+        got = abea_ultra_cuda.abea_walk_window(*wa, route=route)
+        torch.cuda.synchronize()
+        assert _same(got, want), route
+
+
+def test_abea_fills_match_plain_on_a_long_chain(cuda):
+    """K1 and both instances of K3 (the forward pass without a trace, the
+    re-fill with one) bit for bit against the plain fills on a read of
+    13,600 bands among short ones: the band step scores both placements
+    before Suzuki's rule and must still select the plain version's
+    bits."""
+    from f5c_tpu_torch.ops import abea_ultra, abea_ultra_cuda
+
+    model = builtin_model("dna_r9_nucleotide")
+    rng = np.random.default_rng(17)
+    seqs, events = synthetic.abea_reads(rng, [5000, 30, 400], model)
+    x = _on(synthetic.abea_inputs(seqs, events, model), cuda)
+    args = _fill_args(x)
+    want = abea.abea_fill_packed_plain(*args)
+    got = abea_cuda.abea_fill(*args, x["n_bands"])
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    win = 4096
+    nb_max = int(np.diff(x["band_off"].cpu().numpy()).max())
+    nw = abea_ultra.n_windows(nb_max, win)
+    s0 = abea_ultra.initial_state(x["params"])
+    fwd = abea_ultra_cuda.abea_fill_window(*args, s0, 2, win, nw, False)
+    fwd_p = abea_ultra.fill_window_packed_plain(*args, s0, 2, win, nw, False)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(fwd[0]), _bits(fwd_p[0]))
+    state = fwd_p[0][:, 0].contiguous()
+    got = abea_ultra_cuda.abea_fill_window(*args, state, 2 + win, win, 1,
+                                           True)
+    want = abea_ultra.fill_window_packed_plain(*args, state, 2 + win, win,
+                                               1, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
 
 
 HMM_META = ("meta", "packed_ref", "read_tab", "ev_pool", "level_mean",

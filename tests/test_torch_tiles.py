@@ -9,7 +9,11 @@ a chain of ~450 tiles, and short ones whose bands straddle the trim column
 (k = -1) -- every cell the plain fill computes over any tile [b, b+T) lies
 inside ``fill_tile_reach``, and every band the plain walk visits from a
 tile's top lies inside ``walk_tile_reach`` of its tile; the kernels' shared
-memory layout is the size the wrappers give them.
+memory layout is the size the wrappers give them.  The tiled walk
+(csrc/abea_walk_tiled.cu) enters every tile below its start at a mapped
+cell of the tile's top two rows (walk_map_reach), finishes a byte past a
+tile within walk_emit_reach, and its kernels' constants and shared
+memory are the helpers' in ops/abea.py.
 """
 
 import os
@@ -153,7 +157,7 @@ def _constants(name):
     with open(os.path.join(CSRC, name)) as f:
         text = f.read()
     return {m.group(1): m.group(2) for m in re.finditer(
-        r"constexpr int (\w+) = ([^;]+);", text)}
+        r"constexpr int (\w+)\s*=\s*([^;]+);", text)}
 
 
 def test_kernel_smem_matches_wrappers():
@@ -172,3 +176,60 @@ def test_kernel_smem_matches_wrappers():
     assert abea.walk_smem_bytes() == 2 * abea.WALK_TILE * (32 + 4)
     assert abea.walk_smem_bytes() <= 48 * 1024
     assert abea.fill_smem_bytes() <= 48 * 1024
+
+
+def test_tiled_walk_smem_matches_kernels():
+    """The tiled walk's kernels (csrc/abea_walk_tiled.cu) refuse shared
+    memory sizes other than their layouts'; the wrapper passes the
+    helpers' sizes, and the map encoding and tile constants agree."""
+    tiled = _constants("abea_walk_tiled.cu")
+    assert tiled["MAP_ENTRIES"] == "2 * BW"
+    assert abea.MAP_ENTRIES == 2 * abea.BW
+    assert eval(tiled["MAP_STOP"]) == abea.MAP_STOP
+    assert eval(tiled["MAP_OFF"]) == abea.MAP_OFF
+    assert int(tiled["EMIT_BELOW"]) == abea.EMIT_BELOW
+    assert int(tiled["CHASE_GROUP"]) == abea.CHASE_GROUP
+    assert int(tiled["EMIT_WARPS"]) == abea.EMIT_WARPS
+    assert tiled["MAP_SMEM"] == "WALK_TILE * (TRACE_ROW + 4) + 2 * 4"
+    assert tiled["CHASE_SMEM"] == "2 * CHASE_GROUP * MAP_ENTRIES * 2"
+    assert " ".join(tiled["EMIT_SMEM"].split()) == \
+        "EMIT_WARPS * (WALK_TILE + EMIT_BELOW) * (TRACE_ROW + 4)"
+    lo, lo1, hi = abea.walk_map_reach(3)
+    assert abea.walk_map_smem_bytes() == (hi - lo1) * (32 + 4) + (lo1 - lo) * 4
+    e_lo, e_hi = abea.walk_emit_reach(3)
+    assert abea.walk_emit_smem_bytes() == abea.EMIT_WARPS * (e_hi - e_lo) * 36
+    assert abea.walk_chase_smem_bytes() == 2 * abea.CHASE_GROUP * 200 * 2
+    for size in (abea.walk_map_smem_bytes(), abea.walk_chase_smem_bytes(),
+                 abea.walk_emit_smem_bytes()):
+        assert size <= 48 * 1024          # static shared memory
+    assert (abea.ENT_MAPPED, abea.ENT_EXACT) == (1, 2)
+
+
+@pytest.mark.parametrize("tile", [abea.WALK_TILE, 16, 4])
+def test_tiled_walk_reach(plain, tile):
+    """On the plain walks of the 20 kb read and the short ones: the walk
+    enters every tile below its start's at a cell of the tile's top two
+    rows whose offset from the row's lower-left k-mer is below BW (a
+    mapped entry: walk_map_reach's rows), and the at most 3 steps that
+    finish a byte past a tile stay within walk_emit_reach's rows."""
+    entries = 0
+    for i, ne, nk, b0, b1 in _reads(plain):
+        if plain["start_e"][i] < 0 or plain["n"][i] == 0:
+            continue
+        bands = _walk_bands(plain, i, nk, b0)
+        x = plain["x"]
+        n = int(plain["n"][i])
+        dirs = plain["flat"][x["byte_off"][i]:x["byte_off"][i + 1]]
+        d = ((dirs[:, None] >> (2 * np.arange(4))) & 3).reshape(-1)[:n]
+        k = nk - 1 - np.concatenate([[0], np.cumsum(d != 1)[:-1]])
+        t = bands // tile
+        for s in np.nonzero(np.diff(t))[0] + 1:   # the first step in a tile
+            j = t[s]
+            _, lo, hi = abea.walk_map_reach(j, tile)
+            assert bands[s] in (hi - 1, hi - 2)
+            o = k[s] - plain["llk"][b0 + bands[s]]
+            assert 0 <= o < abea.BW
+            e_lo, _ = abea.walk_emit_reach(j + 1, tile)
+            assert bands[min(s + 2, len(bands) - 1)] >= e_lo
+            entries += 1
+    assert entries > 300

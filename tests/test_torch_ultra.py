@@ -11,7 +11,12 @@ abea_ultra.py), bit for bit, and its routing in the port's Pipeline.
 - the golden reads forced through the windowed path in the Pipeline on
   the CPU: the same pairs and scalings as the normal path, and 0 deviant
   rows against meth.exp from the CLI;
-- --skip-ultra / --ultra-thresh through the port's CLI.
+- --skip-ultra / --ultra-thresh through the port's CLI;
+- the tiled window walk's plain version (walk_window_tiled_plain) window
+  by window against walk_window_plain inside the windowed path (windows
+  of 97 and 256 bands, tiles of 4, 16 and 128; walks that carry n % 4 !=
+  0) and on random windows (synthetic.window_walk_cases: a walk carried
+  in above the last row, the clamp; no walk; mid-byte).
 """
 
 import io
@@ -29,6 +34,7 @@ from f5c_tpu.ops.abea_ref import Scalings
 from f5c_tpu_torch import datasets, synthetic
 from f5c_tpu_torch.ops import abea_cuda, abea_ultra, abea_ultra_cuda
 from f5c_tpu_torch.ops.abea import read_params
+from f5c_tpu_torch.ops.seq_ranks import ranks_from_packed
 from f5c_tpu_torch.pipeline.runner import Options, Pipeline
 
 N_KMERS = [20, 45, 100, 127, 128, 129, 250, 400, 90]
@@ -349,3 +355,58 @@ def test_ultra_dataset_windowed_matches_unchunked(tmp_path):
     assert out[1_000_000] == out[4_000_000_000]
     assert len({ln.split("\t")[4] for ln in out[1_000_000].split("\n")[1:]
                 if ln}) == 4
+
+
+@pytest.mark.parametrize("tile", [4, 16, 128])
+@pytest.mark.parametrize("win", [97, 256])
+def test_tiled_window_walk_matches_plain(mixed, win, tile):
+    """The windowed path with every window walked by the plain tiled walk
+    (abea_ultra.walk_window_tiled_plain) equals the unchunked ABEA bit for
+    bit, and each window's (k, e, n) and bytes equal walk_window_plain's;
+    windows whose walk starts mid-byte (the carried n % 4 != 0) among
+    them."""
+    _seqs, _events, _scale, _shift, x, t, unchunked = mixed
+    mid = []
+
+    def walk(trace, llk, base, kst, flat, byte_off):
+        want = abea_ultra.walk_window_plain(trace, llk, base, kst, flat,
+                                            byte_off)
+        got = abea_ultra.walk_window_tiled_plain(trace, llk, base, kst,
+                                                 flat, byte_off, tile)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), base
+        mid.append(int(((kst[:, 2] % 4 != 0) & (kst[:, 0] >= 0)).sum()))
+        return got
+
+    got = abea_ultra.align_windowed(
+        t["ev_pool"], t["ev_off"], t["ev_len"],
+        ranks_from_packed(t["seq_packed"], x["k"]), t["seq_off"],
+        *(t[k] for k in ("rk_len", "level_mean", "level_stdv",
+                         "level_log_stdv", "params", "band_off",
+                         "byte_off")), x["n_bytes"],
+        int(np.diff(x["band_off"]).max()), win, walk=walk)
+    for g, w in zip(got, unchunked):
+        assert torch.equal(g, w)
+    assert sum(mid) > 0
+
+
+@pytest.mark.parametrize("tile", [4, 16, 128])
+@pytest.mark.parametrize("win", [5, 97, 300])
+def test_tiled_window_walk_on_random_traces(win, tile):
+    """One window over random traces (synthetic.window_walk_cases): walks
+    carried in above the window's last row (the last-row clamp), below
+    its first (no walk), mid-byte, and off the band; the plain tiled walk
+    equals walk_window_plain's (k, e, n) and bytes."""
+    rng = np.random.default_rng(win * 10 + tile)
+    y = synthetic.window_walk_cases(rng, 12, win, 40)
+    u = {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+         for k, v in y.items()}
+    a = (u["trace"], u["llk"], 40, u["kst"], u["flat"], u["byte_off"])
+    want = abea_ultra.walk_window_plain(*a)
+    got = abea_ultra.walk_window_tiled_plain(*a, tile)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    k, e, n = (y["kst"][:, j].astype(np.int64) for j in range(3))
+    v = e + k + 2 - 40
+    walks = (k >= 0) & (e >= 0) & (v >= 0)
+    assert (walks & (v >= win)).any()           # the clamp
+    assert (~walks).any()                       # no walk
+    assert (walks & (n % 4 != 0)).any()         # mid-byte
