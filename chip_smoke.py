@@ -235,6 +235,9 @@ K9_STAGES = {
 }
 # their rows, by launch ("golden_x85", "ultra")
 STAGES: dict = {}
+# the fills' routes at every launch compare_launches holds: {name: {fast
+# reads, guarded reads (their bands took __fdiv_rn), launches}}
+FILL_ROUTES: dict = {}
 # the wrapper of a kernel where its name differs (the fused HMM kernel
 # counts its launches as hmm_forward)
 WRAPPERS = {"hmm_forward": "hmm_forward_meta", "events": "detect_events",
@@ -435,6 +438,8 @@ def compare_launches(spy_calls, torch):
     ABEA must be, the HMM must be within tolerance, and its rank probe,
     "hmm_ranks", bit-identical; so must the fills' k-mer ranks, through
     their probe, "abea_ranks", at every fill launch)."""
+    import numpy as np
+
     from f5c_tpu_torch.ops import (abea, abea_cuda, abea_ultra,
                                    abea_ultra_cuda, events_cuda,
                                    events_device, hmm, viterbi_cuda)
@@ -445,9 +450,17 @@ def compare_launches(spy_calls, torch):
             err["abea_ranks"] = max(err.get("abea_ranks", 0),
                                     hold_abea_ranks(*args[3:7]))
     for args, kw in spy_calls.get("abea_fill", ()):
-        got = abea_cuda.abea_fill(*args, **kw)
+        *got, guarded = abea_cuda.abea_fill(*args, **kw, routes=True)
         want = abea.abea_fill_packed_plain(*args[:12])
         err["abea_fill"] = max(err.get("abea_fill", 0), _int_err(got, want))
+        # an unchunked fill stages every event and k-mer of its reads:
+        # its route is the plain statement's
+        fast = abea.fill_routes(*args[:12])
+        if not np.array_equal(guarded.cpu().numpy(), (~fast).astype(
+                np.int32)):
+            raise AssertionError("abea_fill: the kernel's routes differ "
+                                 "from abea.fill_routes")
+        tally_routes("abea_fill", guarded)
     for args, kw in spy_calls.get("abea_walk", ()):
         # each route on every read, and the crossover's mix
         want = abea.abea_walk_plain(*args[:6])
@@ -461,7 +474,9 @@ def compare_launches(spy_calls, torch):
         err["hmm_forward"] = max(err.get("hmm_forward", 0.0), e)
         err["hmm_ranks"] = max(err.get("hmm_ranks", 0), e_ranks)
     for args, kw in spy_calls.get("abea_fill_window", ()):
-        got = abea_ultra_cuda.abea_fill_window(*args, **kw)
+        *got, guarded = abea_ultra_cuda.abea_fill_window(*args, **kw,
+                                                         routes=True)
+        tally_routes("abea_fill_window", guarded)
         want = abea_ultra.fill_window_packed_plain(*args, **kw)
         err["abea_fill_window"] = max(err.get("abea_fill_window", 0),
                                       _int_err(got, want))
@@ -487,6 +502,95 @@ def compare_launches(spy_calls, torch):
             raise AssertionError(f"{name}: kernel differs from plain "
                                  f"(max abs err {err[name]})")
     return err
+
+
+def tally_routes(name: str, guarded) -> None:
+    """Adds one fill launch's route report (i32 per read: 1 where its
+    bands took __fdiv_rn) to FILL_ROUTES."""
+    n = int(guarded.sum())
+    r = FILL_ROUTES.setdefault(name, {"fast": 0, "guarded": 0,
+                                      "launches": 0})
+    r["fast"] += int(guarded.shape[0]) - n
+    r["guarded"] += n
+    r["launches"] += 1
+
+
+def far_inputs(torch, dev) -> tuple[dict, dict]:
+    """K1 and both K3 instances on reads some of whose inputs lie outside
+    the fast quotient's range (synthetic.abea_far_inputs), against the
+    plain fills bit for bit, with each launch's route: the reads outside
+    take __fdiv_rn, the others the fast quotient.  Returns
+    ({name: max_abs_err}, the routes)."""
+    import numpy as np
+
+    from f5c_tpu_torch import synthetic
+    from f5c_tpu_torch.models import builtin_model
+    from f5c_tpu_torch.ops import abea, abea_cuda, abea_ultra, abea_ultra_cuda
+
+    x = synthetic.abea_far_inputs(np.random.default_rng(19),
+                                  builtin_model("dna_r9_nucleotide"))
+    fast = x.pop("fast")
+    t = {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
+         else v for k, v in x.items()}
+    args = tuple(t[k] for k in FILL_ARGS)
+    *got, guarded = abea_cuda.abea_fill(*args, x["n_bands"], routes=True)
+    err = {"abea_fill": _int_err(got, abea.abea_fill_packed_plain(*args))}
+    routes = {"abea_fill": guarded.tolist()}
+    win = 300
+    nb_max = int(np.diff(x["band_off"]).max())
+    nw = abea_ultra.n_windows(nb_max, win)
+    s0 = abea_ultra.initial_state(t["params"])
+    wins = [(s0, 2, win, nw, False)]
+    fwd = abea_ultra.fill_window_packed_plain(*args, *wins[0])
+    wins.append((fwd[0][:, nw - 2].contiguous(), 2 + (nw - 1) * win, win,
+                 1, True))
+    err["abea_fill_window"] = 0
+    for i, w in enumerate(wins):
+        *got, g = abea_ultra_cuda.abea_fill_window(*args, *w, routes=True)
+        want = fwd if i == 0 else abea_ultra.fill_window_packed_plain(
+            *args, *w)
+        err["abea_fill_window"] = max(err["abea_fill_window"],
+                                      _int_err(got, want))
+        routes["abea_fill_window" if i == 0 else "abea_fill_window_trace"] \
+            = g.tolist()
+    want = (~fast).astype(int).tolist()
+    if (routes["abea_fill"] != want or routes["abea_fill_window"] != want
+            or any(a and not b for a, b in zip(
+                routes["abea_fill_window_trace"], want))
+            or max(err.values()) != 0):
+        raise AssertionError(f"far inputs: errors {err}, routes {routes}, "
+                             f"expected {want}")
+    return err, routes
+
+
+def fill_ptxas(log: str) -> dict:
+    """{fill instance: "registers, spill bytes"} from an nvcc -Xptxas -v
+    log: abea_fill_kernel and abea_fill_window_kernel<true/false>."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            f = m.group(1)
+            k = re.search(r"(abea_fill(?:_window)?_kernel)(ILb([01])E)?", f)
+            name = None if k is None else k.group(1) + (
+                "" if k.group(2) is None else
+                "<true>" if k.group(3) == "1" else "<false>")
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {})["spill"] = (int(m.group(1))
+                                                 + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return {k: f"{v.get('registers')} registers, {v.get('spill', 0)} "
+               f"spill bytes" for k, v in out.items()}
 
 
 def hold_abea_ranks(seq_packed, seq_off, rk_len, k) -> int:
@@ -2141,6 +2245,9 @@ def main(argv: list[str]) -> int:
             _build.build_info.get("log", "").splitlines() if "Used" in ln]
     say("build", seconds=f"{time.time() - t0:.2f}",
         cached=_build.build_info["cached"], ptxas="; ".join(regs))
+    say("fill_ptxas", **{k.replace("<", "_").replace(">", ""): v.replace(
+        " ", "_") for k, v in fill_ptxas(
+            _build.build_info.get("log", "")).items()})
     if argv == ["--profile"]:
         profile_runs(torch, card, runner, datasets)
         print(card, flush=True)
@@ -2191,12 +2298,16 @@ def main(argv: list[str]) -> int:
         err_golden = compare_launches(spy.calls, torch)
         held_golden = hold_native(spy.calls, nuc)
         err_synth = compare_launches(synthetic_calls(torch, dev), torch)
+        err_far, far_routes = far_inputs(torch, dev)
         probed = rank_probe_cases(torch, dev)
         abea_probed = abea_rank_probe_cases(torch, dev)
         k8k9 = synthetic_k8k9(torch, dev)
         k8k9.update(hold_peak_probe(torch, dev))
         torch.cuda.synchronize()
+        say("far_inputs", errors=err_far,
+            routes=json.dumps(far_routes, separators=(",", ":")))
         say("kernel_vs_plain", golden=err_golden, synthetic=err_synth,
+            fill_routes=json.dumps(FILL_ROUTES, separators=(",", ":")),
             rank_probe_windows=probed, abea_rank_probe_kmers=abea_probed,
             golden_events_vs_native=held_golden,
             events_fixed_reads=events_cuda.fixed_reads["events"])
@@ -2555,7 +2666,7 @@ def main(argv: list[str]) -> int:
                 warp_ms=ultra_walk["walk_warp_ms"])}
         errs = {name: max(e.get(name, 0) for e in (
             err_golden, err_synth, err_scale, err_golden_win,
-            err_synth_win, err_mixed, err_ultra, err_vit, err_big,
+            err_synth_win, err_mixed, err_ultra, err_vit, err_big, err_far,
             err_vit_scale, k8k9["errors"], k8k9["global_tables"], err_pores))
             for name in KERNELS}
         kernels = []
@@ -2588,6 +2699,10 @@ def main(argv: list[str]) -> int:
                 kernels[-1].update(walk_extra[name])
             if name == "events":
                 kernels[-1].update(peak_scan)
+            if name in FILL_ROUTES:
+                # the reads whose bands took the fast quotient or
+                # __fdiv_rn, over every launch held to the plain fill
+                kernels[-1]["routes"] = FILL_ROUTES[name]
         kernels += stage_rows(counts["events"], errs["events"])
 
     loaded = sorted(m for m in sys.modules

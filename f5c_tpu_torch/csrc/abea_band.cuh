@@ -4,41 +4,62 @@
 // plain PyTorch version is f5c_tpu_torch/ops/abea.py:_Band.step.
 //
 // A block of PAD threads owns one read; thread o is band offset o (BW
-// active).  Three band rows rotate in shared memory: band bi lives in
-// rows[bi % 3].  Every f32 operation is an __f*_rn intrinsic (never
-// contracted into an FMA) and the library is built with --fmad=false.
+// active).  Three band rows rotate in shared memory, each with a -inf
+// guard cell at either end (cell o at o + 1).  Every f32 operation is an
+// __f*_rn intrinsic (never contracted into an FMA, but for the fast
+// quotient's, which are the compiler's own division: div_rn.cuh) and the
+// library is built with --fmad=false.
 //
 // What bounds a read's fill on Hopper is the chain of dependent band
 // steps: band bi places itself from band bi-1's edge cells (Suzuki's
-// rule).  The step therefore reads only shared memory:
+// rule), so a read is n_bands steps of one barrier each.  Each of the
+// block's four warps issues ~110-130 instructions a band on its own
+// scheduler; the step is that issue plus the barrier and the rule's
+// shared-memory round trip.  The design keeps the issue short:
+// - no division slow path: the emission's quotient is div_rn.cuh's fast
+//   path, with the k-mer's reciprocal made where the k-mer is staged
+//   (the float4's .w), taken while every staged event, kms and stdv of
+//   the read lies in its range (Stage::fast, decided by a vote of the
+//   block where inputs land: off the chain, and uniform, so that a
+//   tile's bands run one instance or the other), else __fdiv_rn.
+//   __fdiv_rn's range check and slow-path call in every band held the
+//   step at ~240 ns, the fast path at ~150 (PERF.md);
+// - no bounds tests in the step: the rows' guard cells stand for the
+//   cells past either end, the rings keep copies of the slots a band's
+//   reads can wrap onto (one mask a ring a band), the band's cells are
+//   [lo, hi) of offsets from two mins and maxes of the read's sizes, and
+//   the rows rotate by pointer;
+// - the trace is not stored a band at a time: each warp's lanes hold 32
+//   bands' ballots and llk, stored every 32 bands (TraceBatch): a global
+//   store a band slowed the traced fill by ~45 % against the one without
+//   a trace;
 // - the read's inputs are staged by tiles of FILL_TILE bands in two rings
-//   (Stage): per k-mer (kms = scale*mean + shift, stdv, LOG_INV_SQRT_2PI -
-//   log_stdv), computed once per k-mer with the very operations of the
-//   cell's formula, and the events.  In FILL_TILE bands the lower-left
-//   corner moves by at most FILL_TILE k-mers and events, so a tile reaches
-//   k-mers [ll_k, ll_k + T + BW) and events (ll_e - BW, ll_e + T]
-//   (ops/abea.py fill_tile_reach).  The rings hold the current tile's
-//   reach and the next one's; the next tile's sequence bytes and events
-//   are loaded into registers when a tile starts and land while it runs;
+//   (Stage): per k-mer (kms = scale*mean + shift, stdv,
+//   LOG_INV_SQRT_2PI - log_stdv, 1/stdv), computed once per k-mer with
+//   the very operations of the cell's formula, and the events.  In
+//   FILL_TILE bands the lower-left corner moves by at most FILL_TILE
+//   k-mers and events, so a tile reaches k-mers [ll_k, ll_k + T + BW) and
+//   events (ll_e - BW, ll_e + T] (ops/abea.py fill_tile_reach).  The rings
+//   hold the current tile's reach and the next one's; the next tile's
+//   sequence words and events are loaded into registers when a tile
+//   starts and land while it runs;
 // - the k-mer ranks are not an input: a read's sequence comes 2-bit
 //   packed (ops/seq_ranks.py pack_seqs: whole 32-bit words), and the
 //   staging ranks each k-mer from its words where it puts the k-mer into
 //   the ring (kmer_rank: K11, f5c_tpu/ops/seq_ranks.py:72
-//   ranks_from_packed, fused).  A read moves 0.25 B a base in place of a
-//   4 B rank.  The next tile's k-mer stays in flight as two words: more
-//   state live across the tile's bands slows them (a k-mer's bytes held
-//   in 5 registers cost K3 11 % a window on the H100; PERF.md);
+//   ranks_from_packed, fused);
 // - both candidate placements' neighbours and inputs are read, and both
-//   placements' emissions (the correctly rounded division among them) and
-//   diagonal and up sums computed, before Suzuki's rule picks one: after
-//   the rule the chain only selects, adds the left move, takes two maxes
-//   and stores (the emission after the rule cost ~265 ns a band; PERF.md);
+//   placements' emissions and diagonal and up sums computed, before
+//   Suzuki's rule picks one: after the rule the chain only selects, adds
+//   the left move, takes two maxes and stores;
 // - the backtrace start is kept per thread (the thread that owns the
 //   last-k-mer cell of a band scores it from its register) and reduced
-//   over the block only at the end of a window, so no thread has serial
-//   work after a band's barrier.  The reduction keeps the sequential
-//   rule: the largest score, and of equal scores the earliest band.
-// One barrier per band remains.
+//   over the block only at the end of a window.  The reduction keeps the
+//   sequential rule: the largest score, and of equal scores the earliest
+//   band.
+// One warp a read (cells in registers, neighbours by shuffles, no
+// barrier) and two warps a read were measured slower: one warp issues
+// four slots' work a band on one scheduler (PERF.md).
 
 #pragma once
 
@@ -46,10 +67,15 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "div_rn.cuh"
+
 namespace f5c_abea {
+
+using f5c_div::div_rn;
 
 constexpr int BW = 100;
 constexpr int PAD = 128;
+constexpr int ROW = PAD + 2;  // a band row in shared memory: guards at 0, PAD+1
 constexpr int FROM_D = 0, FROM_U = 1, FROM_L = 2;
 constexpr int HALF = BW / 2;
 constexpr int LL_K0 = -1 - HALF;          // band 0's lower-left k-mer
@@ -74,13 +100,51 @@ __device__ __forceinline__ void store_trace_row(uint8_t* row, int o,
     reinterpret_cast<uint2*>(row)[o >> 5] = make_uint2(lo, hi);
 }
 
-// Staging (ops/abea.py FILL_TILE, fill_ring_slots, fill_smem_bytes).
+// A warp's 8 bytes of the trace rows and the llk of up to 32 bands: lane
+// b & 31 holds band b's, and flush stores them together, every 32 bands
+// and at the end of a run of bands.
+struct TraceBatch {
+  uint2 w;
+  int llk;
+  int lo;  // the batch's first band
+
+  // Band b's directions (thread o's `frm`) and lower-left k-mer.
+  __device__ __forceinline__ void put(int o, int b, int frm, int ll_k) {
+    const unsigned x = __ballot_sync(~0u, frm & 1);
+    const unsigned y = __ballot_sync(~0u, frm >> 1);
+    if ((o & 31) == (b & 31)) {
+      w = make_uint2(x, y);
+      llk = ll_k;
+    }
+  }
+
+  // Stores bands [lo, last] (row b at tr + b * TRACE_ROW, llk_out[b] by
+  // warp 0); the next batch starts at last + 1.
+  __device__ __forceinline__ void flush(uint8_t* tr, int32_t* llk_out,
+                                        int o, int last) {
+    const int b = (last & ~31) + (o & 31);
+    if (b >= lo && b <= last) {
+      reinterpret_cast<uint2*>(tr + static_cast<int64_t>(b) *
+                                        TRACE_ROW)[o >> 5] = w;
+      if (o < 32) llk_out[b] = llk;
+    }
+    lo = last + 1;
+  }
+};
+
+// Staging (ops/abea.py FILL_TILE, fill_ring_slots, fill_smem_bytes).  The
+// k-mer ring holds k-mer k at slot k & RING_MASK and slots below PAD again
+// at RING + slot; the event ring holds event e at PAD + (e & RING_MASK),
+// slots at or above RING - PAD again below PAD, and slot 0 again at
+// RING + PAD.  A band reads k-mer slots ll_k + o + {0, 1} and event
+// slots ll_e - o + {0, 1} from one masked base a thread, within those
+// copies.
 constexpr int FILL_TILE = 128;
 constexpr int RING = 512;                 // >= 2 * FILL_TILE + BW
 constexpr int RING_MASK = RING - 1;
 static_assert(RING >= 2 * FILL_TILE + BW, "the ring holds two tiles' reach");
 static_assert(FILL_TILE <= PAD, "one staged k-mer and event per thread");
-constexpr int FILL_SMEM = RING * (16 + 4) + PAD * 12;
+constexpr int FILL_SMEM = (RING + PAD) * 16 + (RING + 2 * PAD) * 4 + PAD * 12;
 
 // The carried state of a read between two bands, as a record of f32
 // words (ints stored as their bits): band bi-1's row, band bi-2's row,
@@ -151,6 +215,19 @@ __device__ __forceinline__ int kmer_rank(KmerWords kw, int64_t pos,
   return static_cast<int>(r >> (32 - 2 * kmer));
 }
 
+// A k-mer as the ring holds it: (kms, stdv, LOG_INV_SQRT_2PI - log_stdv,
+// 1 / stdv as div_rn.cuh's recip), from its model entry and the read's
+// scaling; `ok`: its kms and stdv lie in the fast quotient's range.  The
+// division probe (abea.cu f5c_abea_division_probe) stages through it too.
+__device__ __forceinline__ float4 staged_kmer(float mean, float stdv,
+                                              float log_stdv, float scale,
+                                              float shift, bool& ok) {
+  const float kms = __fadd_rn(__fmul_rn(scale, mean), shift);
+  ok = f5c_div::operand_ok(kms) && f5c_div::divisor_ok(stdv);
+  return make_float4(kms, stdv, __fsub_rn(LOG_INV_SQRT_2PI, log_stdv),
+                     f5c_div::recip(stdv));
+}
+
 __device__ __forceinline__ ReadIn read_in(
     int i, const float* ev_pool, const int64_t* ev_off,
     const int32_t* ev_len, const uint8_t* seq, const int64_t* seq_off,
@@ -171,16 +248,21 @@ __device__ __forceinline__ ReadIn read_in(
   return r;
 }
 
-__device__ __forceinline__ float lane_at(const float* row, int o) {
-  return (o >= 0 && o < PAD) ? row[o] : -CUDART_INF_F;
+// Sets a band row's guard cells (thread o < 3 of row o); the rows'
+// cells 0 .. PAD-1 are the kernels' to write.
+__device__ __forceinline__ void guard_rows(float (*rows)[ROW], int o) {
+  if (o < 3) {
+    rows[o][0] = -CUDART_INF_F;
+    rows[o][ROW - 1] = -CUDART_INF_F;
+  }
 }
 
 // The read's inputs staged in shared memory (the layout of
-// fill_smem_bytes): k-mer k at km[k & RING_MASK] = (kms, stdv,
-// LOG_INV_SQRT_2PI - log_stdv, 0), event e at ev[e & RING_MASK], and the
-// best-start reduction's scratch.  Loaded: k-mers [.., k_hi), events
-// [.., e_hi).  Slots outside the read hold stale values that the band
-// step never uses (its validity test excludes those cells).
+// fill_smem_bytes, above FILL_SMEM), and the best-start reduction's
+// scratch.  Loaded: k-mers [.., k_hi), events [.., e_hi).  Slots outside
+// the read hold stale values that the band step never uses (its validity
+// test excludes those cells).  `fast`: every staged kms, stdv and event
+// lies in the fast quotient's range (the same in every thread).
 struct Stage {
   float4* km;
   float* ev;
@@ -188,6 +270,7 @@ struct Stage {
   int* red_b;
   int* red_e;
   int k_hi, e_hi;
+  bool fast;
   // the next tile's loads, in flight in registers
   int p_k, p_e;
   KmerWords p_kw;
@@ -195,36 +278,50 @@ struct Stage {
 
   __device__ __forceinline__ void bind(unsigned char* smem) {
     km = reinterpret_cast<float4*>(smem);
-    ev = reinterpret_cast<float*>(smem + RING * 16);
-    red_s = reinterpret_cast<float*>(smem + RING * 20);
-    red_b = reinterpret_cast<int*>(smem + RING * 20 + PAD * 4);
-    red_e = reinterpret_cast<int*>(smem + RING * 20 + PAD * 8);
+    ev = reinterpret_cast<float*>(smem + (RING + PAD) * 16);
+    unsigned char* red = smem + (RING + PAD) * 16 + (RING + 2 * PAD) * 4;
+    red_s = reinterpret_cast<float*>(red);
+    red_b = reinterpret_cast<int*>(red + PAD * 4);
+    red_e = reinterpret_cast<int*>(red + PAD * 8);
   }
 
-  __device__ __forceinline__ void put_kmer(int k, int r, const ReadIn& rd,
-                                           const Model& m) {
+  // Ranks the k-mer at k from its words and stages it; returns its `ok`.
+  __device__ __forceinline__ bool put_kmer(int k, KmerWords kw,
+                                           const ReadIn& rd, const Model& m) {
+    int r = kmer_rank(kw, rd.seq_off + k, rd.kmer);
     r = r < 0 ? 0 : (r >= m.n ? m.n - 1 : r);
-    km[k & RING_MASK] = make_float4(
-        __fadd_rn(__fmul_rn(rd.scale, m.mean[r]), rd.shift), m.stdv[r],
-        __fsub_rn(LOG_INV_SQRT_2PI, m.log_stdv[r]), 0.0f);
+    bool ok;
+    const float4 v = staged_kmer(m.mean[r], m.stdv[r], m.log_stdv[r],
+                                 rd.scale, rd.shift, ok);
+    const int sl = k & RING_MASK;
+    km[sl] = v;
+    if (sl < PAD) km[RING + sl] = v;
+    return ok;
+  }
+
+  __device__ __forceinline__ bool put_event(int e, float v) {
+    const int sl = e & RING_MASK;
+    ev[PAD + sl] = v;
+    if (sl >= RING - PAD) ev[PAD + sl - RING] = v;
+    if (sl == 0) ev[PAD + RING] = v;
+    return f5c_div::operand_ok(v);
   }
 
   // Before the first band of a launch: the reach of the first tile,
-  // from band base-1's lower-left corner.  Ends with a barrier.
+  // from band base-1's lower-left corner.  Ends with a barrier (the
+  // range vote).
   __device__ void init(int o, int ll_k, int ll_e, const ReadIn& rd,
                        const Model& m) {
     k_hi = ll_k + FILL_TILE + BW;
     e_hi = ll_e + FILL_TILE + 1;
+    bool ok = true;
     for (int k = ll_k + o; k < k_hi; k += PAD)
-      if (k >= 0 && k < rd.nk) {
-        const int64_t pos = rd.seq_off + k;
-        put_kmer(k, kmer_rank(load_kmer(rd.seq, pos, rd.kmer), pos, rd.kmer),
-                 rd, m);
-      }
+      if (k >= 0 && k < rd.nk)
+        ok &= put_kmer(k, load_kmer(rd.seq, rd.seq_off + k, rd.kmer), rd, m);
     for (int e = ll_e - BW + 1 + o; e < e_hi; e += PAD)
-      if (e >= 0 && e < rd.ne) ev[e & RING_MASK] = rd.ev[e];
+      if (e >= 0 && e < rd.ne) ok &= put_event(e, rd.ev[e]);
     p_k = p_e = -1;
-    __syncthreads();
+    fast = __syncthreads_and(ok);
   }
 
   // At the start of a tile (band bi-1's corner ll_k, ll_e): start the
@@ -243,41 +340,42 @@ struct Stage {
 
   // At the end of a tile: rank the prefetched k-mer and store it and the
   // prefetched event into the rings (the slots they take held k-mers and
-  // events below the next tile's reach).  Ends with a barrier.
+  // events below the next tile's reach), and vote on their range.  Ends
+  // with a barrier.
   __device__ __forceinline__ void land(const ReadIn& rd, const Model& m) {
-    if (p_k >= 0)
-      put_kmer(p_k, kmer_rank(p_kw, rd.seq_off + p_k, rd.kmer), rd, m);
-    if (p_e >= 0) ev[p_e & RING_MASK] = p_ev;
-    __syncthreads();
+    bool ok = true;
+    if (p_k >= 0) ok &= put_kmer(p_k, p_kw, rd, m);
+    if (p_e >= 0) ok &= put_event(p_e, p_ev);
+    fast = __syncthreads_and(ok) && fast;
   }
 };
 
-// Fills band bi into rows[bi % 3] from rows[(bi-1) % 3] and
-// rows[(bi-2) % 3] and returns thread o's direction (FROM_D outside the
-// band).  Advances s to band bi (its best start is left to the block
-// reduction) and updates this thread's candidate c.  Ends with one block
-// barrier.
-__device__ __forceinline__ int band_step(float (*rows)[PAD], int bi, int o,
-                                         const ReadIn& rd, const Stage& st,
-                                         BandState& s, Cand& c) {
-  const float* prev = rows[(bi - 1) % 3];
-  const float* prev2 = rows[(bi - 2) % 3];
-  float* cur = rows[bi % 3];
-  // both placements' neighbours and inputs, before Suzuki's rule
-  const float p_m1 = lane_at(prev, o - 1), p_0 = prev[o],
-              p_p1 = lane_at(prev, o + 1);
+// Fills band bi into `cur` from band bi-1 (`prev`) and bi-2 (`prev2`)
+// and returns thread o's direction (FROM_D outside the band).  Advances
+// s to band bi (its best start is left to the block reduction) and
+// updates this thread's candidate c.  FAST: the fast quotient
+// (Stage::fast).  Ends with one block barrier.
+template <bool FAST>
+__device__ __forceinline__ int band_step(const float* prev,
+                                         const float* prev2, float* cur,
+                                         int bi, int o, const ReadIn& rd,
+                                         const Stage& st, BandState& s,
+                                         Cand& c) {
+  // both placements' neighbours and inputs, before Suzuki's rule: cells
+  // o - 1, o, o + 1 of band bi-1 and o + d - 1, o + d of band bi-2
+  const float p_m1 = prev[o], p_0 = prev[o + 1], p_p1 = prev[o + 2];
   const int d = s.ll_k - s.k2;
-  const float q_0 = lane_at(prev2, o + d - 1), q_1 = lane_at(prev2, o + d);
-  const float4 ka = st.km[(s.ll_k + o) & RING_MASK];
-  const float4 kb = st.km[(s.ll_k + o + 1) & RING_MASK];
-  const float ea = st.ev[(s.ll_e - o) & RING_MASK];
-  const float eb = st.ev[(s.ll_e + 1 - o) & RING_MASK];
+  const float q_0 = prev2[o + d], q_1 = prev2[o + d + 1];
+  const float4* kp = st.km + ((s.ll_k + o) & RING_MASK);
+  const float* ep = st.ev + PAD + ((s.ll_e - o) & RING_MASK);
+  const float4 ka = kp[0], kb = kp[1];
+  const float ea = ep[0], eb = ep[1];
   // both placements scored before the rule: the emission and the
   // diagonal and up sums of a right move (k-mer kb, event ea) and of a
   // down move (ka, eb); the rule then only selects (the same operations
   // on the same operands: the selected values are the same bits)
-  const float a_r = __fdiv_rn(__fsub_rn(ea, kb.x), kb.y);
-  const float a_d = __fdiv_rn(__fsub_rn(eb, ka.x), ka.y);
+  const float a_r = div_rn<FAST>(__fsub_rn(ea, kb.x), kb.y, kb.w);
+  const float a_d = div_rn<FAST>(__fsub_rn(eb, ka.x), ka.y, ka.w);
   const float em_r = __fadd_rn(kb.z, __fmul_rn(__fmul_rn(-0.5f, a_r), a_r));
   const float em_d = __fadd_rn(ka.z, __fmul_rn(__fmul_rn(-0.5f, a_d), a_d));
   const float sd_r = __fadd_rn(__fadd_rn(q_1, rd.lp_step), em_r);
@@ -285,19 +383,21 @@ __device__ __forceinline__ int band_step(float (*rows)[PAD], int bi, int o,
   const float sd_d = __fadd_rn(__fadd_rn(q_0, rd.lp_step), em_d);
   const float su_d = __fadd_rn(__fadd_rn(p_0, rd.lp_stay), em_d);
   // Suzuki's rule from the previous band's edge cells
-  const float llv = prev[0], urv = prev[BW - 1];
+  const float llv = prev[1], urv = prev[BW];
   const bool both_ob = (llv == -CUDART_INF_F) && (urv == -CUDART_INF_F);
   const int right = both_ob ? (bi & 1) : (llv < urv ? 1 : 0);
   const int k1 = s.ll_k;
   s.ll_k += right;
   s.ll_e += 1 - right;
 
-  const int e = s.ll_e - o;
-  const int k = s.ll_k + o;
-  // diag (k-1, e-1) in band bi-2 and up (k, e-1) in band bi-1, scored;
-  // left (k-1, e) in band bi-1.  Branch-free, so that the scores above
-  // stay ahead of the rule; a cell outside the band keeps -inf, FROM_D.
-  const bool valid = o < BW && k >= 0 && k < rd.nk && e >= 0 && e < rd.ne;
+  // the band's cells: offsets [lo, hi), where 0 <= k = ll_k + o < nk,
+  // 0 <= e = ll_e - o < ne and o < BW; up (k, e-1) and left (k-1, e) in
+  // band bi-1.  Branch-free, so that the scores above stay ahead of the
+  // rule; a cell outside the band keeps -inf, FROM_D.
+  const int lo = max(-s.ll_k, s.ll_e - rd.ne + 1);
+  const int hi = min(min(rd.nk - s.ll_k, s.ll_e + 1), BW);
+  const bool valid = static_cast<unsigned>(o - lo) <
+                     (hi > lo ? static_cast<unsigned>(hi - lo) : 0u);
   const float s_d = right ? sd_r : sd_d;
   const float s_u = right ? su_r : su_d;
   const float s_l = __fadd_rn(right ? p_0 : p_m1, rd.lp_skip);
@@ -327,7 +427,7 @@ __device__ __forceinline__ int band_step(float (*rows)[PAD], int bi, int o,
       c.e = e_lc;
     }
   }
-  cur[o] = row;
+  cur[o + 1] = row;
   s.k2 = k1;
   __syncthreads();
   return frm;
@@ -362,24 +462,45 @@ __device__ __forceinline__ void reduce_best(int o, const Stage& st,
   __syncthreads();
 }
 
-// Runs bands [bi, stop) of one read: the band step, the tile bookkeeping
-// of the rings (`left` bands until the next tile, carried across calls),
-// and `emit(bi, frm)` after each band.
+// Runs bands [bi, stop) of one read: the band step over the three rows
+// (band b's at rows[b % 3]), the tile bookkeeping of the rings (`left`
+// bands until the next tile, carried across calls), each tile's bands
+// with the fast quotient or __fdiv_rn as the staging decided, and
+// `emit(bi, frm)` after each band.
 template <typename Emit>
-__device__ __forceinline__ void run_bands(float (*rows)[PAD], int& bi,
+__device__ __forceinline__ void run_bands(float (*rows)[ROW], int& bi,
                                           int stop, int o, const ReadIn& rd,
                                           const Model& m, Stage& st,
                                           BandState& s, Cand& c, int& left,
                                           Emit emit) {
-  for (; bi < stop; ++bi) {
+  float* r2 = rows[(bi + 1) % 3];  // band bi-2's row
+  float* r1 = rows[(bi + 2) % 3];  // band bi-1's
+  float* r0 = rows[bi % 3];        // band bi's
+  while (bi < stop) {
     if (left == 0) {
       st.land(rd, m);
       st.prefetch(o, s.ll_k, s.ll_e, rd);
       left = FILL_TILE;
     }
-    const int frm = band_step(rows, bi, o, rd, st, s, c);
-    emit(bi, frm);
-    --left;
+    const int end = stop - bi < left ? stop : bi + left;
+    left -= end - bi;
+    if (st.fast) {
+      for (; bi < end; ++bi) {
+        emit(bi, band_step<true>(r1, r2, r0, bi, o, rd, st, s, c));
+        float* t = r2;
+        r2 = r1;
+        r1 = r0;
+        r0 = t;
+      }
+    } else {
+      for (; bi < end; ++bi) {
+        emit(bi, band_step<false>(r1, r2, r0, bi, o, rd, st, s, c));
+        float* t = r2;
+        r2 = r1;
+        r1 = r0;
+        r0 = t;
+      }
+    }
   }
 }
 

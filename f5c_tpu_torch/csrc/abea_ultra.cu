@@ -22,23 +22,26 @@
 //
 // abea_fill_window_kernel: one block per read (a ragged grid over the
 // batch's ultra reads), 128 threads, three band rows in shared memory,
-// and the band step, input staging and best-start reduction of
-// abea_band.cuh -- the very code of the unchunked fill, so the two are
-// bit-identical.  A block loads its read's state record (ST_WORDS f32,
-// ~1 KB), stages the inputs of its first tile from the record's
-// lower-left corner, runs n_win windows of WIN bands from band `base` and
-// writes the state it reaches at the end of every window.  The forward
-// pass is one launch over the whole read with no trace (it writes the
-// checkpoint of every window and, in the last one, the backtrace start);
-// the backward pass re-fills one window from its checkpoint with the
-// trace on.  Bands at or past the read's end are not run: the state
+// and the band step, input staging, batched trace stores and best-start
+// reduction of abea_band.cuh -- the very code of the unchunked fill, so
+// the two are bit-identical.  A block loads its read's state record
+// (ST_WORDS f32, ~1 KB), stages the inputs of its first tile from the
+// record's lower-left corner, runs n_win windows of WIN bands from band
+// `base` and writes the state it reaches at the end of every window.  The
+// forward pass is one launch over the whole read with no trace (it writes
+// the checkpoint of every window and, in the last one, the backtrace
+// start); the backward pass re-fills one window from its checkpoint with
+// the trace on.  Bands at or past the read's end are not run: the state
 // stays, and the trace rows there are 0.  The trace rows are written as
-// abea.cu's (store_trace_row).
+// abea.cu's (TraceBatch).
 // What bounds it: as for the unchunked fill, the band recurrence -- each
 // band needs the previous band's edge cells, so a read is a chain of
-// dependent steps: latency.  An ultra batch holds few reads, so few SMs
-// are busy; the design keeps the chain inside one launch (no host round
-// trip per window) and the step on shared memory.
+// dependent steps: latency, each step each warp's issue and one barrier
+// (~110 ns a band on an H100 without the trace, ~165 with it; PERF.md).
+// An ultra batch holds few reads, so few SMs are busy; the design keeps
+// the chain inside one launch (no host round trip per window), the step
+// on shared memory and its division off __fdiv_rn's slow path where the
+// staged inputs allow (f5c_abea_fill_window_routed reports the route).
 //
 // abea_walk_window_kernel (a yardstick since the windowed path walks each
 // window with the tiled walk of abea_walk_tiled.cu, which replaces K10;
@@ -76,8 +79,8 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
     const float* __restrict__ params, const int64_t* __restrict__ band_off,
     const float* __restrict__ state_in, int base, int win, int n_win,
     float* __restrict__ state_out, uint8_t* __restrict__ trace,
-    int32_t* __restrict__ llk_out) {
-  __shared__ float rows[3][PAD];
+    int32_t* __restrict__ llk_out, int32_t* __restrict__ guarded) {
+  __shared__ float rows[3][ROW];
   extern __shared__ __align__(16) unsigned char smem[];
   const int i = blockIdx.x;
   const int o = threadIdx.x;
@@ -90,8 +93,9 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
   int32_t* llk = kTrace ? llk_out + i * span : nullptr;
 
   const float* st_in = state_in + static_cast<int64_t>(i) * ST_WORDS;
-  rows[(base - 1) % 3][o] = st_in[ST_PREV + o];
-  rows[(base - 2) % 3][o] = st_in[ST_PREV2 + o];
+  rows[(base - 1) % 3][o + 1] = st_in[ST_PREV + o];
+  rows[(base - 2) % 3][o + 1] = st_in[ST_PREV2 + o];
+  guard_rows(rows, o);
   BandState s;
   s.ll_k = __float_as_int(st_in[ST_LLK]);
   s.k2 = __float_as_int(st_in[ST_K2]);
@@ -104,31 +108,34 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
   st.init(o, s.ll_k, s.ll_e, rd, m);  // ends with a barrier
 
   int next = base, left = 0;  // the next band to run; bands to a new tile
+  TraceBatch tb;              // its bands counted from base
+  tb.lo = 0;
   for (int j = 0; j < n_win; ++j) {
     const int lo = base + j * win;
     const int hi = lo + win;
     run_bands(rows, next, hi < nb ? hi : nb, o, rd, m, st, s, c, left,
               [&](int b, int frm) {
                 if (kTrace) {
-                  store_trace_row(
-                      tr + static_cast<int64_t>(b - base) * TRACE_ROW, o,
-                      frm);
-                  if (o == 0) llk[b - base] = s.ll_k;
+                  tb.put(o, b - base, frm, s.ll_k);
+                  if (((b - base) & 31) == 31)
+                    tb.flush(tr, llk, o, b - base);
                 }
               });
+    if (kTrace && next - 1 - base >= tb.lo)
+      tb.flush(tr, llk, o, next - 1 - base);
     const int z0 = lo > nb ? lo : nb;  // the bands past the read's end
     if (kTrace && z0 < hi) {            // get zero rows
       uint4* zr = reinterpret_cast<uint4*>(
           tr + static_cast<int64_t>(z0 - base) * TRACE_ROW);
       const int64_t n16 =
           static_cast<int64_t>(hi - z0) * (TRACE_ROW / 16);
-      for (int64_t j = o; j < n16; j += PAD) zr[j] = make_uint4(0, 0, 0, 0);
+      for (int64_t q = o; q < n16; q += PAD) zr[q] = make_uint4(0, 0, 0, 0);
       for (int b = z0 + o; b < hi; b += PAD) llk[b - base] = 0;
     }
     reduce_best(o, st, s, c);
     float* so = state_out + (static_cast<int64_t>(i) * n_win + j) * ST_WORDS;
-    so[ST_PREV + o] = rows[(next - 1) % 3][o];
-    so[ST_PREV2 + o] = rows[(next - 2) % 3][o];
+    so[ST_PREV + o] = rows[(next - 1) % 3][o + 1];
+    so[ST_PREV2 + o] = rows[(next - 2) % 3][o + 1];
     if (o == 0) {
       so[ST_LLK] = __int_as_float(s.ll_k);
       so[ST_K2] = __int_as_float(s.k2);
@@ -136,6 +143,7 @@ __global__ void __launch_bounds__(PAD) abea_fill_window_kernel(
       so[ST_BEST_S] = s.best_s;
     }
   }
+  if (guarded && o == 0) guarded[i] = st.fast ? 0 : 1;
 }
 
 __global__ void __launch_bounds__(32) abea_walk_window_kernel(
@@ -160,13 +168,21 @@ __global__ void __launch_bounds__(32) abea_walk_window_kernel(
 
 extern "C" {
 
+int f5c_abea_fill_window_routed(const void*, const void*, const void*,
+                                const void*, const void*, const void*,
+                                const void*, const void*, const void*,
+                                const void*, const void*, const void*, void*,
+                                void*, void*, void*, int, int, int, int, int,
+                                int, int, void*);
+
 // Launches the windowed fill on `stream`; allocates nothing; returns
 // cudaGetLastError() after the launch.  `trace` and `llk` are both null
 // (no trace: the forward pass) or both set.  `smem_bytes` is the block's
 // dynamic shared memory as the wrapper sizes it (ops/abea.py
 // fill_smem_bytes, walk_smem_bytes); a size other than the kernel's
 // layout is refused.
-// `seq`, `seq_off` and `kmer` as for f5c_abea_fill (abea.cu).
+// `seq`, `seq_off` and `kmer` as for f5c_abea_fill (abea.cu); like it,
+// without the route report.
 int f5c_abea_fill_window(
     const void* ev_pool, const void* ev_off, const void* ev_len,
     const void* seq, const void* seq_off, const void* rk_len,
@@ -175,6 +191,23 @@ int f5c_abea_fill_window(
     const void* state_in, void* state_out, void* trace, void* llk,
     int kmer, int n_model, int n_reads, int base, int win, int n_win,
     int smem_bytes, void* stream) {
+  return f5c_abea_fill_window_routed(
+      ev_pool, ev_off, ev_len, seq, seq_off, rk_len, level_mean, level_stdv,
+      level_log_stdv, params, band_off, state_in, state_out, trace, llk,
+      nullptr, kmer, n_model, n_reads, base, win, n_win, smem_bytes, stream);
+}
+
+// f5c_abea_fill_window that also writes, for each read, whether its bands
+// took __fdiv_rn (1) or the fast quotient (0) into `guarded` (i32
+// [n_reads]), as f5c_abea_fill_routed does.
+int f5c_abea_fill_window_routed(
+    const void* ev_pool, const void* ev_off, const void* ev_len,
+    const void* seq, const void* seq_off, const void* rk_len,
+    const void* level_mean, const void* level_stdv,
+    const void* level_log_stdv, const void* params, const void* band_off,
+    const void* state_in, void* state_out, void* trace, void* llk,
+    void* guarded, int kmer, int n_model, int n_reads, int base, int win,
+    int n_win, int smem_bytes, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (smem_bytes != FILL_SMEM || kmer < 1 || kmer > 15 ||
       (trace == nullptr) != (llk == nullptr))
@@ -182,7 +215,8 @@ int f5c_abea_fill_window(
   if (n_reads > 0) {
     auto kernel = trace ? abea_fill_window_kernel<true>
                         : abea_fill_window_kernel<false>;
-    kernel<<<n_reads, PAD, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<n_reads, PAD, smem_bytes,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ev_pool),
         static_cast<const int64_t*>(ev_off),
         static_cast<const int32_t*>(ev_len),
@@ -196,7 +230,7 @@ int f5c_abea_fill_window(
         static_cast<const int64_t*>(band_off),
         static_cast<const float*>(state_in), base, win, n_win,
         static_cast<float*>(state_out), static_cast<uint8_t*>(trace),
-        static_cast<int32_t*>(llk));
+        static_cast<int32_t*>(llk), static_cast<int32_t*>(guarded));
   }
   return static_cast<int>(cudaGetLastError());
 }

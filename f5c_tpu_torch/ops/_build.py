@@ -41,12 +41,15 @@ _i64 = ctypes.c_longlong
 # ints)
 _SIGNATURES = {
     "f5c_abea_fill": [_vp] * 14 + [_int] * 4 + [_vp],
+    "f5c_abea_fill_routed": [_vp] * 15 + [_int] * 4 + [_vp],
+    "f5c_abea_division_probe": [_vp] * 6 + [_int] + [_vp],
     "f5c_abea_ranks": [_vp] * 4 + [_int] * 2 + [_vp],
     "f5c_abea_walk": [_vp] * 9 + [_int] * 2 + [_vp],
     "f5c_abea_walk_tiled": [_vp] * 15 + [_int] * 8 + [_vp],
     "f5c_hmm_forward_meta": [_vp] * 9 + [_i64] + [_int] * 7 + [_vp],
     "f5c_hmm_window_ranks": [_vp] * 4 + [_i64] + [_int] * 3 + [_vp],
     "f5c_abea_fill_window": [_vp] * 15 + [_int] * 7 + [_vp],
+    "f5c_abea_fill_window_routed": [_vp] * 16 + [_int] * 7 + [_vp],
     "f5c_abea_walk_window": [_vp] * 5 + [_int] * 4 + [_vp],
     "f5c_viterbi_rounds": [_vp] * 12 + [_int] * 4 + [_vp],
     "f5c_viterbi_division_probe": [_vp] * 4 + [_int] + [_vp],

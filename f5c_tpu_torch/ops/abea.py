@@ -126,9 +126,54 @@ def fill_ring_slots(tile: int = FILL_TILE) -> int:
 
 def fill_smem_bytes(tile: int = FILL_TILE) -> int:
     """Dynamic shared memory of a fill block: the k-mer ring (kms, stdv,
-    log-term, pad as float4), the event ring (f32), the best-start
+    log-term, 1/stdv as float4) with PAD slots again past its end, the
+    event ring (f32) with PAD slots before and PAD after it (the copies
+    that let a band's reads wrap without a mask), the best-start
     reduction (PAD x (f32, i32, i32))."""
-    return fill_ring_slots(tile) * (16 + 4) + PAD * 12
+    ring = fill_ring_slots(tile)
+    return (ring + PAD) * 16 + (ring + 2 * PAD) * 4 + PAD * 12
+
+
+# The range in which the fill kernels take their fast quotient
+# (csrc/div_rn.cuh operand_ok, divisor_ok: exponents of |x| for nonzero
+# x), and its statement in Python.
+DIV_OPERAND_EXP = (-30, 29)     # events and kms: 0, or 2^lo <= |x| < 2^(hi+1)
+DIV_DIVISOR_EXP = (-60, 59)     # stdv: nonzero, 2^lo <= |x| < 2^(hi+1)
+
+
+def _moderate(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    ex = ((x.contiguous().view(torch.int32) >> 23) & 0xFF) - 127
+    return (x == 0) | ((ex >= lo) & (ex <= hi))
+
+
+def fill_fast_division_ok(ev, kms, stdv) -> bool:
+    """Whether a fill kernel's bands take the fast quotient for a read
+    whose staged events are ``ev``, whose k-mers' scaled means are ``kms``
+    and stdvs ``stdv`` (f32 tensors): the staging's vote
+    (csrc/abea_band.cuh Stage::fast), every event and kms 0 or in
+    +-[2^-30, 2^30) and every stdv in +-[2^-60, 2^60).  Elsewhere the
+    kernels divide by __fdiv_rn: the same bits."""
+    return bool(_moderate(ev, *DIV_OPERAND_EXP).all()
+                and _moderate(kms, *DIV_OPERAND_EXP).all()
+                and ((stdv != 0) & _moderate(stdv, *DIV_DIVISOR_EXP)).all())
+
+
+def fill_routes(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k,
+                level_mean, level_stdv, level_log_stdv, params, band_off):
+    """The fill wrappers' arguments -> bool numpy [B]: whether each read's
+    whole fill takes the fast quotient (fill_fast_division_ok over all of
+    its events and k-mers, which an unchunked fill stages; a windowed
+    fill stages a window's reach, a part of them)."""
+    rk = ranks_from_packed(seq_packed, k).long().clamp(
+        0, level_mean.shape[0] - 1)
+    out = np.zeros(ev_len.shape[0], bool)
+    for i in range(ev_len.shape[0]):
+        e0, k0 = int(ev_off[i]), int(seq_off[i])
+        r = rk[k0:k0 + int(rk_len[i])]
+        kms = params[i, 0] * level_mean[r] + params[i, 1]
+        out[i] = fill_fast_division_ok(ev_pool[e0:e0 + int(ev_len[i])], kms,
+                                       level_stdv[r])
+    return out
 
 
 def walk_tile_reach(top: int, tile: int = WALK_TILE):

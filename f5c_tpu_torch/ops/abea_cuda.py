@@ -52,7 +52,7 @@ def check_seqs(fn: str, seq_packed, seq_off, rk_len, k, dev, B) -> None:
 
 def abea_fill(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k: int,
               level_mean, level_stdv, level_log_stdv, params, band_off,
-              n_bands: int):
+              n_bands: int, routes: bool = False):
     """Band fill (layout: ops/abea.py) of reads whose sequences come 2-bit
     packed (``seq_packed`` u8 from ``seq_ranks.pack_seqs``, whole 32-bit
     words; read i's first base at ``seq_off[i]`` i64, ``rk_len`` i32 its
@@ -60,7 +60,10 @@ def abea_fill(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k: int,
     fused); on the CPU, ``abea_fill_packed_plain``.  ``n_bands`` is ``band_off[-1]``,
     passed from the host so that sizing the outputs never waits for the
     device.  Returns (the packed trace u8 [n_bands, TRACE_ROW_BYTES],
-    llk i32 [n_bands], start_e i32 [B])."""
+    llk i32 [n_bands], start_e i32 [B]); with ``routes`` (on the card
+    only) also the kernel's report i32 [B]: 1 where a read's bands took
+    __fdiv_rn, 0 where the fast quotient (``abea.fill_routes`` is its
+    plain statement)."""
     dev = ev_pool.device
     B = ev_len.shape[0]
     for name, t, dt, nd in (
@@ -80,6 +83,8 @@ def abea_fill(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k: int,
     if not (level_mean.shape == level_stdv.shape == level_log_stdv.shape):
         raise ValueError("abea_fill: model tables differ in length")
     if dev.type == "cpu":
+        if routes:
+            raise ValueError("abea_fill: routes are the kernel's report")
         if int(band_off[-1]) != n_bands:
             raise ValueError("abea_fill: n_bands != band_off[-1]")
         return abea_fill_packed_plain(ev_pool, ev_off, ev_len, seq_packed,
@@ -92,19 +97,50 @@ def abea_fill(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k: int,
                         device=dev)
     llk = torch.empty(n_bands, dtype=torch.int32, device=dev)
     start_e = torch.empty(B, dtype=torch.int32, device=dev)
+    guarded = torch.empty(B, dtype=torch.int32, device=dev) if routes \
+        else None
     lib = _build.library()
     with _build.device_guard(dev):
-        err = lib.f5c_abea_fill(
+        err = lib.f5c_abea_fill_routed(
             ev_pool.data_ptr(), ev_off.data_ptr(), ev_len.data_ptr(),
             seq_packed.data_ptr(), seq_off.data_ptr(), rk_len.data_ptr(),
             level_mean.data_ptr(), level_stdv.data_ptr(),
             level_log_stdv.data_ptr(), params.data_ptr(),
             band_off.data_ptr(), trace.data_ptr(), llk.data_ptr(),
-            start_e.data_ptr(), k, level_mean.shape[0], B,
-            fill_smem_bytes(), _build.stream_handle(dev))
-    _build.check_error(lib, "f5c_abea_fill", err)
+            start_e.data_ptr(),
+            guarded.data_ptr() if routes else None, k,
+            level_mean.shape[0], B, fill_smem_bytes(),
+            _build.stream_handle(dev))
+    _build.check_error(lib, "f5c_abea_fill_routed", err)
     launches["abea_fill"] += 1
-    return trace, llk, start_e
+    return (trace, llk, start_e, guarded) if routes else (trace, llk,
+                                                           start_e)
+
+
+def division_probe(ev, mean, stdv):
+    """(the fill's fast quotient of ev - mean by stdv, __fdiv_rn's, the
+    staging's range vote i32), each k-mer staged as the fill stages it
+    with a scale of 1 and a shift of 0; f32 CUDA tensors of one shape: the
+    probe that holds the fill's fast path to the correctly rounded
+    quotient on the card (tests/test_torch_kernels_cuda.py).  Not counted
+    in ``launches``."""
+    dev = ev.device
+    if dev.type != "cuda":
+        raise ValueError("division_probe: the probe runs on the card")
+    for name, t in (("ev", ev), ("mean", mean), ("stdv", stdv)):
+        _build.check_tensor(name, t, torch.float32, 1, dev)
+        if t.shape != ev.shape:
+            raise ValueError("division_probe: the inputs differ in shape")
+    fast, ref = torch.empty_like(ev), torch.empty_like(ev)
+    ok = torch.empty(ev.shape, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with _build.device_guard(dev):
+        err = lib.f5c_abea_division_probe(
+            ev.data_ptr(), mean.data_ptr(), stdv.data_ptr(), fast.data_ptr(),
+            ref.data_ptr(), ok.data_ptr(), ev.shape[0],
+            _build.stream_handle(dev))
+    _build.check_error(lib, "f5c_abea_division_probe", err)
+    return fast, ref, ok
 
 
 def abea_ranks(seq_packed, seq_off, rk_len, k: int):

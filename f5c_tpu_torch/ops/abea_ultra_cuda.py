@@ -28,7 +28,7 @@ launches = {"abea_fill_window": 0, "abea_walk_window": 0,
 def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
                      k: int, level_mean, level_stdv, level_log_stdv, params,
                      band_off, state, base: int, win: int, n_win: int,
-                     trace: bool):
+                     trace: bool, routes: bool = False):
     """``n_win`` windows of ``win`` bands from band ``base``, from the
     state records ``state`` [B, STATE_WORDS]; the reads' sequences come
     2-bit packed as ``abea_cuda.abea_fill`` takes them (``seq_packed`` u8,
@@ -37,7 +37,9 @@ def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
     on the CPU, ``abea_ultra.fill_window_packed_plain``.  Returns (states
     [B, n_win, STATE_WORDS], the packed trace u8
     [B, n_win*win, TRACE_ROW_BYTES] or None, llk i32 [B, n_win*win] or
-    None)."""
+    None); with ``routes`` (on the card only) also the kernel's report
+    i32 [B], as ``abea_cuda.abea_fill`` gives it, for the inputs this
+    launch staged."""
     dev = ev_pool.device
     B = ev_len.shape[0]
     for name, t, dt, nd in (
@@ -61,6 +63,9 @@ def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
         raise ValueError(f"abea_fill_window: bad window base={base} "
                          f"win={win} n_win={n_win}")
     if dev.type == "cpu":
+        if routes:
+            raise ValueError("abea_fill_window: routes are the kernel's "
+                             "report")
         return fill_window_packed_plain(
             ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len, k,
             level_mean, level_stdv, level_log_stdv, params, band_off, state,
@@ -74,20 +79,24 @@ def abea_fill_window(ev_pool, ev_off, ev_len, seq_packed, seq_off, rk_len,
         tr = torch.empty((B, n_win * win, TRACE_ROW_BYTES),
                          dtype=torch.uint8, device=dev)
         lk = torch.empty((B, n_win * win), dtype=torch.int32, device=dev)
+    guarded = torch.empty(B, dtype=torch.int32, device=dev) if routes \
+        else None
     lib = _build.library()
     with _build.device_guard(dev):
-        err = lib.f5c_abea_fill_window(
+        err = lib.f5c_abea_fill_window_routed(
             ev_pool.data_ptr(), ev_off.data_ptr(), ev_len.data_ptr(),
             seq_packed.data_ptr(), seq_off.data_ptr(), rk_len.data_ptr(),
             level_mean.data_ptr(), level_stdv.data_ptr(),
             level_log_stdv.data_ptr(), params.data_ptr(),
             band_off.data_ptr(), state.data_ptr(), out.data_ptr(),
             tr.data_ptr() if trace else None,
-            lk.data_ptr() if trace else None, k, level_mean.shape[0], B,
-            base, win, n_win, fill_smem_bytes(), _build.stream_handle(dev))
-    _build.check_error(lib, "f5c_abea_fill_window", err)
+            lk.data_ptr() if trace else None,
+            guarded.data_ptr() if routes else None, k, level_mean.shape[0],
+            B, base, win, n_win, fill_smem_bytes(),
+            _build.stream_handle(dev))
+    _build.check_error(lib, "f5c_abea_fill_window_routed", err)
     launches["abea_fill_window"] += 1
-    return out, tr, lk
+    return (out, tr, lk, guarded) if routes else (out, tr, lk)
 
 
 def abea_walk_window(trace, llk, base: int, kst, flat, byte_off,

@@ -77,6 +77,34 @@ def abea_inputs(seqs, events, model, scale=None, shift=None) -> dict:
         n_bands=int(band_off[-1]), n_bytes=int(byte_off[-1]))
 
 
+def abea_far_inputs(rng, model, n_kmers=(300, 420, 380, 510, 260, 340)):
+    """abea_inputs of reads some of whose inputs lie outside the range in
+    which the fill kernels take their fast quotient (csrc/div_rn.cuh:
+    events and kms in +-[2^-30, 2^30) or 0, stdv in +-[2^-60, 2^60)), so
+    that they take __fdiv_rn: read 1 has events of 0 (inside the range),
+    read 2 an event of 2^40 and one of -2^40, read 3 a k-mer that no other
+    read holds with a stdv of 2^-70 (the tables are a copy), read 4 a
+    shift of 2^31 (so every kms is near 2^31); reads 0 and 5 are plain.
+    ``fast`` is which reads stay in the range."""
+    seqs, events = abea_reads(rng, list(n_kmers), model)
+    events[1][rng.choice(events[1].shape[0], 5, replace=False)] = 0.0
+    far = rng.choice(events[2].shape[0], 2, replace=False)
+    events[2][far] = np.float32(2.0 ** 40), np.float32(-2.0 ** 40)
+    ranks = [model.kmer_ranks(s) for s in seqs]
+    others = set(np.concatenate([r for i, r in enumerate(ranks) if i != 3])
+                 .tolist())
+    tiny = next(int(r) for r in ranks[3] if int(r) not in others)
+    B = len(seqs)
+    shift = np.zeros(B, np.float32)
+    shift[4] = 2.0 ** 31
+    x = abea_inputs(seqs, events, model, shift=shift)
+    stdv = np.array(model.level_stdv, np.float32)
+    stdv[tiny] = 2.0 ** -70
+    x.update(level_stdv=stdv, level_log_stdv=np.log(stdv).astype(np.float32),
+             fast=np.array([True, True, False, False, False, True]))
+    return x
+
+
 def _random_rows(rng, n: int):
     """n trace rows of random directions (0, 1, 2: a walk always
     descends) and llk that moves by 0 or 1 a band, as a fill's does."""

@@ -66,6 +66,19 @@ TRACE_KERNELS = ("abea_fill_kernel", "abea_fill_window_kernel",
                  "hmm_forward_meta_kernel")
 
 
+def fill_smem_of(csrc: str) -> int:
+    """The fill kernels' dynamic shared memory in the tree of ``csrc``
+    (its abea_band.cuh's FILL_SMEM: the kernels refuse any other size)."""
+    import re
+
+    with open(os.path.join(csrc, "abea_band.cuh")) as f:
+        text = f.read()
+    consts = {m.group(1): m.group(2) for m in re.finditer(
+        r"constexpr int (\w+)\s*=\s*([^;,]+)[;,]", text)}
+    names = {k: int(v) for k, v in consts.items() if v.strip().isdigit()}
+    return int(eval(consts["FILL_SMEM"], {}, names))
+
+
 def build_fills(csrc: str, tag: str, signatures) -> ctypes.CDLL:
     """``csrc``'s abea.cu and abea_ultra.cu in a library of their own,
     its two fill entry points bound with ``signatures``."""
@@ -79,6 +92,7 @@ def build_fills(csrc: str, tag: str, signatures) -> ctypes.CDLL:
                     os.path.join(csrc, "abea_ultra.cu")], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(so)
+    lib.fill_smem = fill_smem_of(csrc)
     for name, argtypes in zip(("f5c_abea_fill", "f5c_abea_fill_window"),
                               signatures):
         fn = getattr(lib, name)
@@ -113,7 +127,6 @@ def fills(torch, libs: dict, args, window: bool, rk):
         band_off = args[:12]
     B, dev = ev_len.shape[0], ev_pool.device
     stream = torch.cuda.current_stream().cuda_stream
-    smem = abea.fill_smem_bytes()
     if window:
         state, base, win, n_win, trace = args[12:17]
         shape = (B, n_win * win)
@@ -130,7 +143,7 @@ def fills(torch, libs: dict, args, window: bool, rk):
                 torch.empty(n_bands, dtype=torch.int32, device=dev),
                 torch.empty(B, dtype=torch.int32, device=dev)]
 
-    def launch(fn, seq_arg, k_args, o):
+    def launch(fn, seq_arg, k_args, o, smem):
         head = ptrs(ev_pool, ev_off, ev_len, seq_arg, seq_off, rk_len, lm,
                     ls, lls, params, band_off)
         if window:
@@ -146,9 +159,11 @@ def fills(torch, libs: dict, args, window: bool, rk):
     closures = {}
     for tag, lib in libs.items():
         o = outputs(abea.PAD if tag == "parent" else abea.TRACE_ROW_BYTES)
-        closures[tag] = (lambda f=getattr(lib, name), o=o:
-                         launch(f, rk, [], o)) if tag == "parent" else (
-            lambda f=getattr(lib, name), o=o: launch(f, seq, [k], o))
+        smem = getattr(lib, "fill_smem", abea.fill_smem_bytes())
+        closures[tag] = (lambda f=getattr(lib, name), o=o, m=smem:
+                         launch(f, rk, [], o, m)) if tag == "parent" else (
+            lambda f=getattr(lib, name), o=o, m=smem:
+            launch(f, seq, [k], o, m))
     return closures
 
 

@@ -54,7 +54,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (the Spy, the CLI runner, the card line)
-from abea_fusion_time import (ptrs, record_launches,  # noqa: E402
+from abea_fusion_time import (fill_smem_of, ptrs,  # noqa: E402
+                              record_launches,
                               time_turns)
 
 ENTRIES = ("f5c_abea_fill", "f5c_abea_walk", "f5c_abea_fill_window",
@@ -78,6 +79,7 @@ def build_abea(csrc: str, tag: str) -> ctypes.CDLL:
                     os.path.join(csrc, "abea_ultra.cu")], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(so)
+    lib.fill_smem = fill_smem_of(csrc)
     for name in ENTRIES:
         fn = getattr(lib, name)
         fn.argtypes = _build._SIGNATURES[name]
@@ -98,7 +100,7 @@ class Tree:
         from f5c_tpu_torch.ops import abea
 
         self.lib, self.row, self.walk_smem = lib, row, walk_smem
-        self.fill_smem = abea.fill_smem_bytes()
+        self.fill_smem = getattr(lib, "fill_smem", abea.fill_smem_bytes())
 
     def fill(self, torch, args):
         """K1 on the recorded abea_fill arguments; (trace, llk, start_e)."""

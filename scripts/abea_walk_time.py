@@ -4,7 +4,7 @@ tree's one-warp walk and fill, on one card.
 
     mkdir -p ab/parent && git archive <parent> | tar -x -C ab/parent
     python3 scripts/abea_walk_time.py ab/parent [--tiled DIR ...]
-        [--fill DIR ...] [--out DIR] [--no-ultra]
+        [--fill DIR ...] [--out DIR] [--no-ultra] [--fills-only]
 
 The parent's ``abea.cu`` and ``abea_ultra.cu`` (K1, K4, K3, K10 with the
 2-bit trace: the parent's K4 C interface takes no read list) are built
@@ -22,7 +22,9 @@ among 40 short ones).  For each launch:
 
 - the fills, parent and change, held bit for bit and timed in turns
   (CUDA-event means of 20 launches, 3 at ultra size), with ns a band of
-  the longest chain;
+  the longest chain and the reads whose bands took __fdiv_rn in this
+  tree's fill (``guarded_reads``, the kernels' route report; the rest
+  took the fast quotient);
 - the walks, held bit for bit: the parent's one-warp kernel, this
   tree's one-warp kernel and tiled walk (all reads each), timed in
   turns straight through ctypes with no wrapper work; the tiled walk's
@@ -32,8 +34,12 @@ among 40 short ones).  For each launch:
   this tree's ``abea_walk_tiled.cu`` (the same C interface), built with
   this tree's headers and timed beside it as ``tiled_<DIR's name>``;
   each ``--fill DIR`` a variant of this tree's ``abea.cu``,
-  ``abea_ultra.cu`` and their headers, whose fills are held bit for bit
-  and timed beside the others as ``fill_<DIR's name>``.
+  ``abea_ultra.cu`` and their headers (built with that directory's
+  headers and launched with its FILL_SMEM), whose fills are held bit for
+  bit and timed beside the others as ``fill_<DIR's name>``.  The
+  registers and spills of every tree's three fill instances (nvcc's
+  ``-Xptxas -v``) are printed first.  ``--fills-only`` times the fills
+  alone (no walk, no crossover).
 
 Then the crossover: single reads of 256 to 65,536 bands, each walked
 alone by the one-warp kernel and by the tiled walk in turns, and golden
@@ -67,8 +73,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (the Spy, the CLI runner, the card line)
-from abea_fusion_time import (ptrs, record_launches,  # noqa: E402
-                              time_turns)
+from abea_fusion_time import (fill_smem_of, ptrs,  # noqa: E402
+                              record_launches, time_turns)
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 # the parent's C entry points (its walk takes no read list)
@@ -92,11 +98,14 @@ def build_parent(csrc: str, tag: str = "parent") -> ctypes.CDLL:
     out = os.path.join(ROOT, "build", "abea_walk_time")
     os.makedirs(out, exist_ok=True)
     so = os.path.join(out, f"lib{tag}_abea.so")
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    so, os.path.join(csrc, "abea.cu"),
-                    os.path.join(csrc, "abea_ultra.cu")], check=True,
-                   capture_output=True)
+    built = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                            "-shared", "-o", so,
+                            os.path.join(csrc, "abea.cu"),
+                            os.path.join(csrc, "abea_ultra.cu")],
+                           check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so)
+    lib.fill_smem = fill_smem_of(csrc)
+    lib.ptxas = chip_smoke.fill_ptxas(built.stdout + built.stderr)
     for name, argtypes in PARENT_SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -141,7 +150,7 @@ def fill_fn(torch, lib, args, window: bool):
     ev_pool, ev_off, ev_len, seq, seq_off, rk_len, k, lm, ls, lls, params, \
         band_off = args[:12]
     dev, B = ev_pool.device, ev_len.shape[0]
-    smem = abea.fill_smem_bytes()
+    smem = lib.fill_smem
     row = abea.TRACE_ROW_BYTES
     if window:
         state, base, win, n_win, with_trace = args[12:17]
@@ -325,6 +334,13 @@ def measure(torch, libs, tag, fill_args, walk_args, window, reps, chain):
         if not _same(torch, o, outs["parent"]):
             raise AssertionError(f"{tag}: the {name} fill differs")
     res = dict(tag=tag, reads=int(fill_args[2].shape[0]), chain_bands=chain)
+    # this tree's route: reads whose bands took __fdiv_rn (the rest the
+    # fast quotient)
+    from f5c_tpu_torch.ops import abea_cuda, abea_ultra_cuda
+
+    res["guarded_reads"] = int((abea_ultra_cuda.abea_fill_window(
+        *fill_args, routes=True) if window else abea_cuda.abea_fill(
+        *fill_args, routes=True))[3].sum())
     res["fill_ms"] = time_turns(torch, fills, reps)
     res["fill_ns_per_band"] = {
         k: [round(1e6 * v / chain, 1) for v in vs]
@@ -462,13 +478,15 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "abea_walk_time"))
     ap.add_argument("--no-ultra", action="store_true")
+    ap.add_argument("--fills-only", action="store_true",
+                    help="time the fills alone: no walk, no crossover")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("abea_walk_time: no CUDA device", file=sys.stderr)
         return 1
     from f5c_tpu_torch import datasets, synthetic
     from f5c_tpu_torch.models import builtin_model
-    from f5c_tpu_torch.ops import _build
+    from f5c_tpu_torch.ops import _build, abea
     from f5c_tpu_torch.pipeline import runner
 
     parent = os.path.abspath(a.parent)
@@ -478,14 +496,26 @@ def main() -> int:
     libs = {"parent": build_parent(os.path.join(parent, "f5c_tpu_torch",
                                                 "csrc")),
             "change": _build.library()}
+    result = {"card": card, "launches": [], "routes": [], "single": [],
+              "ultra": []}
     for d in a.tiled:
         tag = os.path.basename(os.path.normpath(d))
         libs[f"tiled_{tag}"] = build_tiled(d, tag)
+    libs["change"].fill_smem = abea.fill_smem_bytes()
+    with open(os.path.join(os.path.dirname(_build.build_info["path"]),
+                           "build.log")) as f:
+        libs["change"].ptxas = chip_smoke.fill_ptxas(f.read())
     for d in a.fill:
         tag = os.path.basename(os.path.normpath(d))
         libs[f"fill_{tag}"] = build_parent(d, f"fill_{tag}")
-    result = {"card": card, "launches": [], "routes": [], "single": [],
-              "ultra": []}
+    for tag, lib in libs.items():
+        if hasattr(lib, "ptxas"):
+            chip_smoke.say("fill_ptxas", tree=tag, **{
+                k.replace("<", "_").replace(">", ""): v.replace(" ", "_")
+                for k, v in lib.ptxas.items()})
+    result["ptxas"] = {tag: lib.ptxas for tag, lib in libs.items()
+                       if hasattr(lib, "ptxas")}
+    walks = not a.fills_only
     L = result["launches"]
     with tempfile.TemporaryDirectory(prefix="walk_") as tmp:
         source = datasets.dataset(chip_smoke.GOLDEN,
@@ -497,10 +527,11 @@ def main() -> int:
         calls = record_launches(torch, x85, os.path.join(tmp, "rec.tsv"))
         fa, wa = calls["abea_fill"][0][0], calls["abea_walk"][0][0]
         chain = int(fa[11].diff().max())
-        L.append(measure(torch, libs, "golden_x85_first", fa, wa, False, 20,
-                         chain))
-        result["routes"].append(route_times(torch, "golden_x85_first",
-                                            wa[:7], 20))
+        L.append(measure(torch, libs, "golden_x85_first", fa,
+                         wa if walks else None, False, 20, chain))
+        if walks:
+            result["routes"].append(route_times(torch, "golden_x85_first",
+                                                wa[:7], 20))
         del calls, fa, wa
         # the 54,002-band read among 40 short ones (chip_smoke's batch)
         rng = np.random.default_rng(2028)
@@ -517,14 +548,16 @@ def main() -> int:
         wa = (fill[0], fill[1], t["band_off"], fill[2], t["rk_len"],
               t["byte_off"], x["n_bytes"])
         chain = int(np.diff(x["band_off"]).max())
-        L.append(measure(torch, libs, "mixed_54k", fa, wa, False, 5, chain))
-        result["routes"].append(route_times(torch, "mixed_54k", wa, 5))
+        L.append(measure(torch, libs, "mixed_54k", fa, wa if walks else None,
+                         False, 5, chain))
+        if walks:
+            result["routes"].append(route_times(torch, "mixed_54k", wa, 5))
         del fill, wa, fa, t
         calls = record_launches(torch, ultra, os.path.join(tmp, "u.tsv"))
         fa, wa = calls["abea_fill"][0][0], calls["abea_walk"][0][0]
         chain = int(fa[11].diff().max())
-        L.append(measure(torch, libs, "ultra_x4_unchunked", fa, wa, False, 3,
-                         chain))
+        L.append(measure(torch, libs, "ultra_x4_unchunked", fa,
+                         wa if walks else None, False, 3, chain))
         del calls, fa, wa
         torch.cuda.empty_cache()
         calls = record_launches(
@@ -538,11 +571,12 @@ def main() -> int:
                     if c[2] == full[13])
         L.append(measure(torch, libs, "ultra_x4_k3_forward", win_calls[0][0],
                          None, True, 3, int(win_calls[0][0][11].diff().max())))
-        L.append(measure(torch, libs, "ultra_x4_full_window", full, walk,
-                         True, 3, full[14]))
+        L.append(measure(torch, libs, "ultra_x4_full_window", full,
+                         walk if walks else None, True, 3, full[14]))
         del calls, win_calls, full, walk
         torch.cuda.empty_cache()
-        result["single"] = single_reads(torch, libs, dev)
+        if walks:
+            result["single"] = single_reads(torch, libs, dev)
         data_json = os.path.join(tmp, "ultra.json")
         with open(data_json, "w") as f:
             json.dump([ultra, tmp], f)

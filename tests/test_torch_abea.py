@@ -24,6 +24,14 @@ makes it on the CPU), at tiles of 4, 16 and 128 bands, and on random
 traces whose paths leave the band (synthetic.walk_cases), where its
 phases' records show every case: no walk, a walk of one tile, walks
 over many tiles, the chase's cell-by-cell path.
+
+The range in which the fill kernels take their fast quotient
+(``fill_fast_division_ok``, the plain statement of the kernels' staging
+vote): every golden read and every ultra x4 read (their launches as the
+port's Pipeline makes them on the CPU) takes it, the far inputs of
+``synthetic.abea_far_inputs`` (events of +-2^40, a stdv of 2^-70, a
+shift of 2^31) do not, and on those the plain fill still equals the JAX
+XLA fill cell for cell and walk for walk.
 """
 
 import numpy as np
@@ -432,3 +440,115 @@ def test_tiled_walk_phases_on_random_traces(tile):
     exact[starts[j_s >= 0]] = False
     assert exact.any()                              # the cell-by-cell chase
     assert ((start[:, 0] & port_abea.MAP_STOP) != 0).any()
+
+
+class _Launched(Exception):
+    """Raised by the ABEA spy once it holds a launch's arguments."""
+
+
+def _first_abea_launch(data: dict) -> tuple:
+    """The arguments of the first unchunked ABEA launch (abea_align) of a
+    call-methylation run of the port's Pipeline on the CPU over ``data``,
+    stopped there."""
+    import io
+
+    from f5c_tpu_torch.pipeline.runner import Options, Pipeline
+
+    got = []
+
+    def spy(*a, **kw):
+        got.append(a)
+        raise _Launched
+
+    opt = Options(min_mapq=0, meth_out_version=1, slow5_path=data["slow5"])
+    pipe = Pipeline(data["bam"], data["genome"], data["reads"], opt,
+                    device=torch.device("cpu"))
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(abea_cuda, "abea_align", spy)
+        with pytest.raises(_Launched):
+            pipe.call_methylation(out=io.StringIO())
+    return got[0]
+
+
+def test_fill_fast_division_routes(tmp_path):
+    """Every golden read and every read of ultra x4 (4 reads of 100-300
+    kb, one launch at the defaults) stays in the fast quotient's range;
+    of the far inputs exactly the reads outside it leave it."""
+    from test_golden_e2e import GOLDEN
+
+    from f5c_tpu_torch import datasets
+
+    golden = datasets.copy_dataset(
+        datasets.dataset(GOLDEN, slow5=datasets.GOLDEN_SIGNALS_ZLIB),
+        str(tmp_path / "golden"))
+    ultra = datasets.ultra_dataset(str(tmp_path / "ultra"), seed=2026)
+    for data, n_reads in ((golden, 6), (ultra, 4)):
+        args = _first_abea_launch(data)
+        assert args[2].shape[0] == n_reads
+        assert port_abea.fill_routes(*args[:12]).all()
+    x = _tensors(synthetic.abea_far_inputs(
+        np.random.default_rng(19), builtin_model("dna_r9_nucleotide")))
+    routes = port_abea.fill_routes(*(x[k] for k in (
+        "ev_pool", "ev_off", "ev_len", "seq_packed", "seq_off", "rk_len",
+        "k", *TABLES)))
+    np.testing.assert_array_equal(routes, x["fast"].numpy())
+    assert not routes.all() and routes.any()
+    ev = torch.tensor([0.0, 2.0 ** -30, -(2.0 ** 30) * 0.99, 95.0])
+    assert port_abea.fill_fast_division_ok(ev, ev, torch.ones(4))
+    for bad_ev, bad_sd in ((2.0 ** 30, 1.0), (2.0 ** -31, 1.0),
+                           (1.0, 0.0), (1.0, 2.0 ** -61), (1.0, 2.0 ** 60),
+                           (float("inf"), 1.0), (float("nan"), 1.0)):
+        assert not port_abea.fill_fast_division_ok(
+            torch.tensor([bad_ev]), torch.tensor([1.0]),
+            torch.tensor([bad_sd]))
+
+
+def test_plain_matches_xla_fill_on_far_inputs():
+    """The far inputs (synthetic.abea_far_inputs), where the kernels take
+    __fdiv_rn: the port's plain fill, unpacked, is the JAX XLA fill's
+    trace cell for cell with its lower-left k-mers, and the walks agree
+    (start event, length, directions)."""
+    import dataclasses
+
+    from f5c_tpu.ops import abea
+
+    model = builtin_model("dna_r9_nucleotide")
+    x = synthetic.abea_far_inputs(np.random.default_rng(19),
+                                  builtin_model("dna_r9_nucleotide"))
+    far_model = dataclasses.replace(model, level_stdv=x["level_stdv"])
+    np.testing.assert_array_equal(far_model.level_log_stdv,
+                                  x["level_log_stdv"])
+    B = x["ev_len"].shape[0]
+    events = [x["ev_pool"][x["ev_off"][i]:x["ev_off"][i] + x["ev_len"][i]]
+              for i in range(B)]
+    ranks = [x["rk_pool"][x["rk_off"][i]:x["rk_off"][i] + x["rk_len"][i]]
+             for i in range(B)]
+    scalings = [Scalings(shift=float(x["params"][i, 1]),
+                         scale=float(x["params"][i, 0])) for i in range(B)]
+    batch = abea.make_batch(events, ranks, far_model, scalings=scalings)
+    E = batch.event_means.shape[1] - 2 * abea.PAD
+    K = batch.kmer_mean.shape[1] - 2 * abea.PAD
+    fill = abea.abea_fill(batch, n_bands=E + K + 2)
+    trace_x, ll_k = np.asarray(fill[0]), np.asarray(fill[2])
+    t = _tensors(x)
+    trace, llk, start_e = abea_cuda.abea_fill(
+        *(t[k] for k in ("ev_pool", "ev_off", "ev_len", "seq_packed",
+                         "seq_off", "rk_len", "k", *TABLES)), x["n_bands"])
+    dirs = port_abea.unpack_trace(trace).numpy()
+    for i in range(B):
+        b0, b1 = int(x["band_off"][i]), int(x["band_off"][i + 1])
+        np.testing.assert_array_equal(dirs[b0:b1], trace_x[i, :b1 - b0],
+                                      err_msg=str(i))
+        np.testing.assert_array_equal(llk[b0:b1].numpy(),
+                                      ll_k[i, :b1 - b0], err_msg=str(i))
+    packed, start_x, n_x, *_ = abea.abea_backtrace_packed(
+        fill, batch, max_pairs=-(-(E + K) // 4) * 4)
+    packed, start_x, n_x = (np.asarray(a) for a in (packed, start_x, n_x))
+    flat, n = port_abea.abea_walk_plain(trace, llk, t["band_off"], start_e,
+                                        t["rk_len"], t["byte_off"])
+    np.testing.assert_array_equal(start_e.numpy(), start_x)
+    np.testing.assert_array_equal(n.numpy(), n_x)
+    for i in range(B):
+        np.testing.assert_array_equal(
+            _dirs(flat.numpy(), x["byte_off"][i], int(n[i])),
+            _dirs(packed[i], 0, int(n_x[i])))

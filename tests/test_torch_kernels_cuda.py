@@ -20,7 +20,9 @@ raises).  The unchunked walk by each route (the tile-parallel walk of
 csrc/abea_walk_tiled.cu, the one-warp walk, the crossover's mix) and every
 window walk by both are held to the plain walks and the plain tiled walk
 on fills and on random traces (the chase's cell-by-cell path, the
-last-row clamp); K1 and both K3 instances on a 13,600-band chain.
+last-row clamp); K1 and both K3 instances on a 13,600-band chain and on
+reads outside the fast quotient's range (__fdiv_rn), the fast quotient
+itself against __fdiv_rn through both kernels' probes.
 """
 
 import numpy as np
@@ -200,6 +202,49 @@ def test_abea_fills_match_plain_on_a_long_chain(cuda):
                                                1, True)
     torch.cuda.synchronize()
     assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
+def test_abea_fills_take_fdiv_outside_the_fast_range(cuda):
+    """K1 and both instances of K3 bit for bit against the plain fills on
+    reads some of whose events, kms or stdv lie outside the fast
+    quotient's range (synthetic.abea_far_inputs): those reads' bands take
+    __fdiv_rn (the kernels' route report), the others the fast quotient,
+    as abea.fill_routes states it; a re-filled window takes __fdiv_rn only
+    for reads that do over the whole read."""
+    from f5c_tpu_torch.ops import abea_ultra, abea_ultra_cuda
+
+    x = synthetic.abea_far_inputs(np.random.default_rng(19),
+                                  builtin_model("dna_r9_nucleotide"))
+    fast = x.pop("fast")
+    x = _on(x, cuda)
+    args = _fill_args(x)
+    assert np.array_equal(abea.fill_routes(*args), fast)
+    want = abea.abea_fill_packed_plain(*args)
+    got = abea_cuda.abea_fill(*args, x["n_bands"], routes=True)
+    torch.cuda.synchronize()
+    assert _same(got[:3], want)
+    assert np.array_equal(got[3].cpu().numpy(), (~fast).astype(np.int32))
+    win = 300
+    nb_max = int(np.diff(x["band_off"].cpu().numpy()).max())
+    nw = abea_ultra.n_windows(nb_max, win)
+    s0 = abea_ultra.initial_state(x["params"])
+    fwd = abea_ultra_cuda.abea_fill_window(*args, s0, 2, win, nw, False,
+                                           routes=True)
+    fwd_p = abea_ultra.fill_window_packed_plain(*args, s0, 2, win, nw, False)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(fwd[0]), _bits(fwd_p[0]))
+    assert np.array_equal(fwd[3].cpu().numpy(), (~fast).astype(np.int32))
+    for w in (1, nw - 1):
+        state = fwd_p[0][:, w - 1].contiguous()
+        base = 2 + w * win
+        got = abea_ultra_cuda.abea_fill_window(*args, state, base, win, 1,
+                                               True, routes=True)
+        want = abea_ultra.fill_window_packed_plain(*args, state, base, win,
+                                                   1, True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(_bits(g), _bits(p))
+                   for g, p in zip(got[:3], want))
+        assert not (got[3].cpu().numpy().astype(bool) & fast).any()
 
 
 HMM_META = ("meta", "packed_ref", "read_tab", "ev_pool", "level_mean",
@@ -636,12 +681,16 @@ def test_viterbi_kernel_matches_plain_and_native(cuda, monkeypatch, case,
         assert np.array_equal(hmm.unpack_movements(movs[i], int(ns[i])), mv)
 
 
-def test_viterbi_fast_division_is_div_rn(cuda):
-    """The chunk Viterbi's fast division (csrc/viterbi.cu div_rn<true>,
-    taken where events and gm lie in +-[2^-30, 2^30) or are 0 and gs in
-    [2^-60, 2^60)) against __fdiv_rn, bit for bit: a = e - gm as the
-    kernel forms it and b = gs, over that whole range (exponents at its
-    edges, ties of e and gm, zeros) and at eventalign's values."""
+@pytest.mark.parametrize("probe", ["viterbi", "abea"])
+def test_viterbi_fast_division_is_div_rn(cuda, probe):
+    """The fast division (csrc/div_rn.cuh div_rn<true>, taken where events
+    and means lie in +-[2^-30, 2^30) or are 0 and the stdv in +-[2^-60,
+    2^60)) against __fdiv_rn, bit for bit, through each kernel's probe:
+    the chunk Viterbi's (a = e - gm as it forms it and b = gs) and the
+    ABEA fill's (the k-mer staged as the fill stages it: its reciprocal
+    made at staging, a = e - kms; the staging's range vote holds every
+    case in range), over that whole range (exponents at its edges, ties of
+    e and gm, zeros) and at pA values."""
     from f5c_tpu_torch.ops import viterbi_cuda
 
     rng = np.random.default_rng(31)
@@ -661,8 +710,12 @@ def test_viterbi_fast_division_is_div_rn(cuda):
     e[near] = rng.uniform(40, 160, near.sum())
     gm[near] = rng.uniform(40, 160, near.sum())
     gs[near] = rng.uniform(0.5, 8, near.sum())
-    a = torch.from_numpy(e).to(cuda) - torch.from_numpy(gm).to(cuda)
-    fast, ref = viterbi_cuda.division_probe(a, torch.from_numpy(gs).to(cuda))
+    e, gm, gs = (torch.from_numpy(v).to(cuda) for v in (e, gm, gs))
+    if probe == "viterbi":
+        fast, ref = viterbi_cuda.division_probe(e - gm, gs)
+    else:
+        fast, ref, ok = abea_cuda.division_probe(e, gm, gs)
+        assert bool((ok == 1).all())
     torch.cuda.synchronize()
     assert torch.equal(fast.view(torch.int32), ref.view(torch.int32))
 

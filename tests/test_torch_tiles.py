@@ -168,14 +168,39 @@ def test_kernel_smem_matches_wrappers():
     assert int(band["FILL_TILE"]) == abea.FILL_TILE
     assert int(band["RING"]) == abea.fill_ring_slots()
     assert int(walk["WALK_TILE"]) == abea.WALK_TILE
-    assert band["FILL_SMEM"] == "RING * (16 + 4) + PAD * 12"
+    assert band["FILL_SMEM"] == \
+        "(RING + PAD) * 16 + (RING + 2 * PAD) * 4 + PAD * 12"
     assert band["TRACE_ROW"] == "PAD / 4"
     assert abea.TRACE_ROW_BYTES == abea.PAD // 4 == 32
     assert walk["WALK_SMEM"] == "2 * WALK_TILE * (TRACE_ROW + 4)"
-    assert abea.fill_smem_bytes() == abea.fill_ring_slots() * 20 + 128 * 12
+    assert abea.fill_smem_bytes() == ((abea.fill_ring_slots() + 128) * 16
+                                      + (abea.fill_ring_slots() + 256) * 4
+                                      + 128 * 12)
     assert abea.walk_smem_bytes() == 2 * abea.WALK_TILE * (32 + 4)
     assert abea.walk_smem_bytes() <= 48 * 1024
     assert abea.fill_smem_bytes() <= 48 * 1024
+
+
+def test_fast_division_range_matches_kernels():
+    """The fill's guard in Python (ops/abea.py DIV_OPERAND_EXP,
+    DIV_DIVISOR_EXP, fill_fast_division_ok) states the range of
+    csrc/div_rn.cuh's operand_ok and divisor_ok, which both K1/K3 and K8
+    take."""
+    div = _constants("div_rn.cuh")
+    assert abea.DIV_OPERAND_EXP == (int(div["OPERAND_LO"]),
+                                    int(div["OPERAND_HI"]))
+    assert abea.DIV_DIVISOR_EXP == (int(div["DIVISOR_LO"]),
+                                    int(div["DIVISOR_HI"]))
+    lo, hi = abea.DIV_OPERAND_EXP
+    one = torch.ones(1)
+    for x, ok in ((2.0 ** lo, True), (2.0 ** (hi + 1) * 0.999, True),
+                  (2.0 ** (lo - 1), False), (2.0 ** (hi + 1), False),
+                  (-(2.0 ** lo), True), (0.0, True)):
+        assert abea.fill_fast_division_ok(torch.tensor([x]), one, one) == ok
+    lo, hi = abea.DIV_DIVISOR_EXP
+    for x, ok in ((2.0 ** lo, True), (2.0 ** (lo - 1), False),
+                  (2.0 ** (hi + 1), False), (0.0, False)):
+        assert abea.fill_fast_division_ok(one, one, torch.tensor([x])) == ok
 
 
 def test_tiled_walk_smem_matches_kernels():
