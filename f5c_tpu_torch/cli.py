@@ -26,7 +26,8 @@ for the kernels' plain PyTorch versions on the host.  ``index``,
 ``meth-freq``, ``freq-merge`` and ``fast5-to-blow5`` run on the host
 only.  ``--profile-dir DIR`` writes a torch.profiler trace of a
 call-methylation or eventalign run to DIR (TensorBoard layout; the card's
-activity, or the host's with ``--device cpu``).  ``--dist -o FILE`` runs
+activity, or the host's with ``--device cpu``), with the pipeline's spans
+(``pipeline/spans.py``) on the trace's time base.  ``--dist -o FILE`` runs
 call-methylation or eventalign as one rank of several processes
 (``parallel/distributed.py``: a gloo group; the launch is found as the
 JAX package finds it, the ``--dist-*`` options first, then Open MPI or
@@ -105,7 +106,10 @@ def _add_common_meth_args(p):
                    help="total process count for manual --dist launches")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run to DIR "
-                        "(view with TensorBoard)")
+                        "(view with TensorBoard), with the pipeline's "
+                        "spans; every span of the run is kept in memory "
+                        "until it ends (~170 B a span, thousands a "
+                        "second on a card), so profile a short run")
     p.add_argument("--print-events", action="store_true",
                    help="dump the event table (debug oracle)")
     p.add_argument("--print-banded-aln", action="store_true",
@@ -315,21 +319,36 @@ def _dist_start(ap, args, timeout_s: float):
     return rank, nprocs, outputs
 
 
-def _maybe_profile(args, device):
+@contextlib.contextmanager
+def _maybe_profile(args, device, spans):
     """torch.profiler trace context for --profile-dir (the counterpart of
     the JAX package's jax.profiler trace, f5c_tpu/cli.py:210-220): the
     card's kernels and copies on a CUDA device, the host's operators with
-    --device cpu, written in TensorBoard's layout when the run ends."""
+    --device cpu, written in TensorBoard's layout when the run ends, with
+    the spans the pipeline's recorder ``spans`` kept meanwhile."""
     d = getattr(args, "profile_dir", None)
     if not d:
-        return contextlib.nullcontext()
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
+        yield
+        return
+    import socket
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from .pipeline.spans import add_to_chrome_trace
+
+    def ready(prof):
+        spans.stop()
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{socket.gethostname()}_{os.getpid()}."
+                               f"{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        add_to_chrome_trace(path, spans)
 
     activity = (ProfilerActivity.CUDA if device.type == "cuda"
                 else ProfilerActivity.CPU)
-    return profile(activities=[activity],
-                   on_trace_ready=tensorboard_trace_handler(d))
+    with profile(activities=[activity], on_trace_ready=ready):
+        spans.start()
+        yield
 
 
 def _index(args) -> int:
@@ -514,7 +533,7 @@ def _run(args):
     pipe = _make_pipeline(args, device)
     out = _out_fh(args.output)
     try:
-        with _maybe_profile(args, device):
+        with _maybe_profile(args, device, pipe.spans):
             if args.cmd == "eventalign":
                 from .pipeline.eventalign import run_eventalign
 

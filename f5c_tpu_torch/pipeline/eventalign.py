@@ -916,7 +916,8 @@ def run_eventalign(pipe, args, out=sys.stdout) -> None:
     if getattr(args, "summary", None):
         summary_fp = open(args.summary, "w")
         summary_fp.write(summary_header())
-    sink = AsyncWriter(out)   # post-processor thread (meth_main.c:610)
+    sp = pipe.spans
+    sink = AsyncWriter(out, sp)   # post-processor thread (meth_main.c:610)
     if sam:
         sink.write(pipe.bam.header_text.rstrip("\n") + "\n")
     elif not paf and not m6anet:
@@ -927,17 +928,20 @@ def run_eventalign(pipe, args, out=sys.stdout) -> None:
     def realign(reads, recs_map):
         if not reads:
             return
-        t0 = time.time()
+        t0 = sp.now()
         refs = [pipe._fetch_ref_segment(r) for r in reads]
         recs_map.update(engine.realign_batch(
             reads, refs, pipe._host_pool(len(reads))))
-        pipe.stage_time["hmm"] += time.time() - t0
+        sp.add("hmm", t0)
 
     keep_raw = samples or collapse
     use_waves = pipe.supports_waves()
     batches = (pipe.batches(load=False) if use_waves
                else pipe.batches_prefetched(keep_raw=keep_raw))
     try:
+        # a batch's span: from the loop's request for it to the hand-off
+        # of its last rows
+        t_batch = sp.now()
         for batch in batches:
             recs_map: dict = {}
             if use_waves:
@@ -950,7 +954,7 @@ def run_eventalign(pipe, args, out=sys.stdout) -> None:
             realign([r for r in batch
                      if not r.status and r.b2e_start is not None
                      and id(r) not in recs_map], recs_map)
-            t0 = time.time()
+            t0 = sp.now()
             for r in batch:
                 if r.status:
                     pipe._count_failure(r)
@@ -992,10 +996,11 @@ def run_eventalign(pipe, args, out=sys.stdout) -> None:
                         recs.ref_disamb, recs.ref_offset, r.read_idx,
                         print_rn, scale_events, samples, signal_index,
                         collapse, as_bytes=True))
-            pipe.stage_time["output"] += time.time() - t0
+            sp.add("output", t0)
+            t_batch = sp.add("batch", t_batch)
     finally:
-        t0 = time.time()
+        t0 = sp.now()
         sink.close()
-        pipe.stage_time["output"] += time.time() - t0
+        sp.add("output", t0, sub="output.drain")
         if summary_fp is not None:
             summary_fp.close()

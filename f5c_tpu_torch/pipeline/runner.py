@@ -59,7 +59,6 @@ import queue
 import struct
 import sys
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -90,6 +89,7 @@ from ..ops.seq_ranks import pack_codes, pack_seqs, seq_codes
 from ..parallel import mesh
 from ..parallel.distributed import MARKER
 from .methylation import MethCalls
+from .spans import Spans
 from .writer import AsyncWriter
 
 
@@ -457,8 +457,10 @@ class Pipeline:
         self.stage_time = dict(load=0.0, events=0.0, align=0.0,
                                scaling=0.0, hmm=0.0, output=0.0)
         # fine-grained host/transfer/device accounting inside the stages
-        # (keys like "align.walk_sync", "hmm.n_dispatch")
+        # (keys like "align.walk_sync", "align.bands", "hmm.n_dispatch")
         self.stage_detail = collections.defaultdict(float)
+        # every timer of the two is a span of this recorder (spans.py)
+        self.spans = Spans(self.stage_time, self.stage_detail)
         self._n_batches = 0
         # genomic window(s): -w chr:start-end or a .bed list
         self.regions = None          # list of (chrom, start, end)
@@ -497,8 +499,13 @@ class Pipeline:
         ``load=False``, yield the filtered records with signals NOT yet
         fetched — the wave-pipelined align path loads them interleaved
         with device dispatches (align_batch_waved).  Loads run inline
-        (only the BAM-ordered debug and dump runs load here)."""
+        (only the BAM-ordered debug and dump runs load here).  The span
+        ``load`` runs from each resumption to the next yield (a loaded
+        batch's own load is ``events``): BAM records, filters, read-db
+        lookups."""
         opt = self.opt
+        sp = self.spans
+        t0 = sp.now()
         # per-run batch counter: --debug-break counts this iteration's
         # batches, not the pipeline object's lifetime total
         self._n_batches = 0
@@ -571,7 +578,10 @@ class Pipeline:
                             f"[f5c-tpu] {len(batch)} entries "
                             f"({bases/1e6:.1f}M bases) loaded\n")
                     self._n_batches += 1
+                    sp.add("load", t0)
+                    t0 = None
                     yield self._load_batch(batch, keep_raw) if load else batch
+                    t0 = sp.now()
                     batch, bases = [], 0
                     if self._n_batches == opt.debug_break:
                         # reference --debug-break: stop after N batches
@@ -583,7 +593,10 @@ class Pipeline:
                         f"[f5c-tpu] {len(batch)} entries "
                         f"({bases/1e6:.1f}M bases) loaded\n")
                 self._n_batches += 1
+                sp.add("load", t0)
+                t0 = None
                 yield self._load_batch(batch, keep_raw) if load else batch
+                t0 = sp.now()
         finally:
             _W["print_raw"] = False
             for key in ("write_dump", "read_dump"):
@@ -600,19 +613,21 @@ class Pipeline:
                     f"[f5c-tpu] {len(self._ultra_records)} ultra-long "
                     f"reads (> {opt.ultra_thresh} bases) written to "
                     f"{opt.skip_ultra} for a second pass\n")
+            if t0 is not None:
+                sp.add("load", t0)
 
     def _load_batch(self, batch, keep_raw):
         """The plain (BAM-ordered) loader, inline per read on the host.
         Only the runs that print or dump raw signals take it (every other
         run loads in ``align_batch_waved``); they need record order, so
         they detect events on the host (``batches_prefetched``)."""
-        t0 = time.time()
+        t0 = self.spans.now()
         for r in batch:
             qname, data = _worker_load((r.qname, r.signal_path, r.seq,
                                         keep_raw))
             assert qname == r.qname
             self._populate_read(r, data)
-        self.stage_time["events"] += time.time() - t0
+        self.spans.add("events", t0)
         return batch
 
     def _events_engine(self) -> str:
@@ -643,17 +658,19 @@ class Pipeline:
         rna = self.opt.rna
         k = self.model.k
         level_mean = self.model.level_mean
-        t0 = time.time()
+        sp = self.spans
+        t0 = sp.now()
         args = [(batch[i].qname, batch[i].signal_path) for i in w]
         pool = self._host_pool(len(w))
-        fetched = list(pool.map(_worker_fetch, args) if pool is not None
-                       else map(_worker_fetch, args))
-        self.stage_detail["events.fetch_host"] += time.time() - t0
+        fetch = sp.task("pool.events_s", _worker_fetch)
+        fetched = list(pool.map(fetch, args) if pool is not None
+                       else map(fetch, args))
+        sp.add("events.fetch_host", t0)
         live = [j for j, (_, f) in enumerate(fetched) if f is not None]
         results = [None] * len(fetched)
         if not live:
             return [(q, None) for q, _ in fetched]
-        t0 = time.time()
+        t0 = sp.now()
         pas = [np.ascontiguousarray(fetched[j][1][0], np.float32)
                for j in live]
         if self.device.type == "cuda":
@@ -666,10 +683,9 @@ class Pipeline:
                                                          self.device)
         else:
             tables = events_cuda.detect_events_batch(pas, rna, self.device)
-        self.stage_detail["events.detect_device"] += time.time() - t0
-        self.stage_detail["events.samples"] += float(sum(
-            p.shape[0] for p in pas))
-        t0 = time.time()
+        sp.add("events.detect_device", t0)
+        sp.count("events.samples", float(sum(p.shape[0] for p in pas)))
+        t0 = sp.now()
 
         def finish(j, tab):
             st, ln, mn, sd = tab
@@ -681,12 +697,13 @@ class Pipeline:
             results[j] = _finish_load(rna, st, ln, mn, sd, nsample, rate,
                                       pa if keep_raw else None, ranks, sc)
 
+        finish = sp.task("pool.events_s", finish)
         if pool is not None:
             list(pool.map(finish, live, tables))
         else:
             for j, tab in zip(live, tables):
                 finish(j, tab)
-        self.stage_detail["events.mom_host"] += time.time() - t0
+        sp.add("events.mom_host", t0)
         return [(q, results[j]) for j, (q, _) in enumerate(fetched)]
 
     def _populate_read(self, r: ReadRecord, data) -> bool:
@@ -819,29 +836,30 @@ class Pipeline:
             flat, start_e, n = abea_ultra_cuda.abea_align_windowed(
                 *args, int(byte_off[-1]), int(np.diff(band_off).max()),
                 self.WIN_BANDS)
-            self.stage_detail["align.ultra_reads"] += len(todo)
+            self.spans.count("align.ultra_reads", len(todo))
         else:
             flat, start_e, n = abea_cuda.abea_align(
                 *args, int(band_off[-1]), int(byte_off[-1]),
                 np.diff(band_off))
-        self.stage_detail["align.n_dispatch"] += 1
-        self.stage_detail["align.band_cells"] += float(band_off[-1]) * 128
+        self.spans.count("align.n_dispatch", 1)
+        # the reads' bands (a windowed read's fill passes over them twice)
+        self.spans.count("align.bands_windowed" if windowed
+                         else "align.bands", int(band_off[-1]))
         nbytes = slab.nbytes + packed.nbytes
-        self.stage_detail["align.h2d_bytes"] += nbytes
+        self.spans.count("align.h2d_bytes", nbytes)
         return (slab_dev, ev_off, byte_off, params,
                 HostCopy([flat, start_e, n])), nbytes
 
     def _finish_abea(self, todo, ranks, launch) -> None:
         """Wait for each part of a dispatch's walk, then decode + QC +
         postalign + recalibrate each of its reads on the host."""
+        sp = self.spans
         for _slot, idx, (_slab, _ev_off, byte_off, params, copy) in launch:
-            t0 = time.time()
+            t0 = sp.now()
             flat, start_e, n = copy.wait()
-            dt = time.time() - t0
-            self.stage_time["align"] += dt
-            self.stage_detail["align.walk_sync"] += dt
-            self.stage_detail["align.d2h_bytes"] += flat.nbytes
-            t0 = time.time()
+            t0 = sp.add("align", t0, sub="align.walk_sync")
+            sp.count("align.d2h_bytes",
+                     flat.nbytes + start_e.nbytes + n.nbytes)
             part = [todo[i] for i in idx]
 
             def post_one(i, r):
@@ -853,13 +871,14 @@ class Pipeline:
                     int(n[i]), int(start_e[i]), float(params[i, 0]),
                     float(params[i, 1]))
 
+            post_one = sp.task("pool.scaling_s", post_one)
             pool = self._host_pool(len(part))
             if pool is not None:
                 list(pool.map(post_one, range(len(part)), part))
             else:
                 for i, r in enumerate(part):
                     post_one(i, r)
-            self.stage_time["scaling"] += time.time() - t0
+            sp.add("scaling", t0)
 
     def align_batch(self, batch):
         """ABEA for a loaded batch in one launch, and the reads routed to
@@ -879,9 +898,9 @@ class Pipeline:
             self._align_ultra_batch(ultra, self._ranks(ultra))
 
     def _align_subbatch(self, todo, ranks) -> None:
-        t0 = time.time()
+        t0 = self.spans.now()
         launch = self._dispatch_abea(todo)
-        self.stage_time["align"] += time.time() - t0
+        self.spans.add("align", t0, sub="align.dispatch")
         self._finish_abea(todo, ranks, launch)
 
     def _align_ultra_batch(self, todo, ranks) -> None:
@@ -897,9 +916,9 @@ class Pipeline:
                     // (self.WIN_BANDS * (TRACE_ROW_BYTES + 4)))
         for i in range(0, len(todo), group):
             part = todo[i:i + group]
-            t0 = time.time()
+            t0 = self.spans.now()
             launch = self._dispatch_abea(part, windowed=True)
-            self.stage_time["align"] += time.time() - t0
+            self.spans.add("align", t0, sub="align.window")
             self._finish_abea(part, ranks, launch)
 
     def align_batch_waved(self, batch, keep_raw: bool = False,
@@ -921,6 +940,7 @@ class Pipeline:
         launches: list = []
         ultra: list = []
         sync_i = 0
+        sp = self.spans
 
         def sync_one():
             nonlocal sync_i
@@ -929,7 +949,7 @@ class Pipeline:
             sync_i += 1
             self._finish_abea(todo, ranks, launch)
             if meth_inline:
-                t0 = time.time()
+                t0 = sp.now()
                 ok = [r for r in todo
                       if not r.status and r.b2e_start is not None]
                 if ok:
@@ -938,22 +958,24 @@ class Pipeline:
                     if st is not None:
                         self._meth_states.append(st)
                     self._meth_covered.update(id(r) for r in ok)
-                self.stage_time["hmm"] += time.time() - t0
+                sp.add("hmm", t0)
             if wave_done is not None:
                 wave_done([r for r in todo
                            if not r.status and r.b2e_start is not None])
 
         device_events = self._events_engine() == "device"
+        load_one = sp.task("pool.events_s", _worker_load)
+        load_many = sp.task("pool.events_s", _worker_load_many)
         for w in waves:
-            t0 = time.time()
+            t0 = sp.now()
             if device_events:
                 loaded = self._load_wave_device(w, batch, keep_raw)
             else:
                 args = [(batch[i].qname, batch[i].signal_path, batch[i].seq,
                          keep_raw) for i in w]
                 pool = self._host_pool(len(w))
-                loaded = (list(pool.map(_worker_load, args))
-                          if pool is not None else _worker_load_many(args))
+                loaded = (list(pool.map(load_one, args)) if pool is not None
+                          else load_many(args))
             todo = []
             for i, (_qname, data) in zip(w, loaded):
                 r = batch[i]
@@ -963,15 +985,13 @@ class Pipeline:
                     r.status |= FAILED_ALIGNMENT
                     continue
                 (ultra if self._takes_window_path(r) else todo).append(r)
-            dt = time.time() - t0
-            self.stage_time["events"] += dt
-            self.stage_detail["events.load_host"] += dt
+            sp.add("events", t0, sub="events.load_host")
             if not todo:
                 continue
-            t0 = time.time()
+            t0 = sp.now()
             launches.append((todo, self._ranks(todo),
                              self._dispatch_abea(todo)))
-            self.stage_time["align"] += time.time() - t0
+            sp.add("align", t0, sub="align.dispatch")
             while len(launches) - sync_i > self.INFLIGHT:
                 sync_one()
         while sync_i < len(launches):
@@ -1025,7 +1045,8 @@ class Pipeline:
         return _LazySites(self, states, extra)
 
     def _meth_batch_native(self, batch):
-        t0 = time.time()
+        sp = self.spans
+        t0 = sp.now()
         reads = [r for r in batch
                  if not r.status and r.b2e_start is not None]
         if not reads:
@@ -1039,8 +1060,9 @@ class Pipeline:
                                   ).astype(np.float32, copy=False)
             parts.append((slot, dev, idx, h2d(slab, dev),
                           ragged_offsets(ev_len)[:-1]))
+            sp.count("hmm.h2d_bytes", slab.nbytes)
         state = self._meth_prepare_dispatch(reads, parts)
-        self.stage_time["hmm"] += time.time() - t0
+        sp.add("hmm", t0)
         return {} if state is None else self._meth_finish([state])
 
     def _meth_prepare_dispatch(self, reads, parts):
@@ -1054,7 +1076,8 @@ class Pipeline:
         Returns the state _meth_finish consumes, or None when there is
         nothing to score."""
         k = self.cpg_model.k
-        t_col = time.time()
+        sp = self.spans
+        t_col = sp.now()
         refs = [self._fetch_ref_segment(r).encode() for r in reads]
 
         def collect(r, ref):
@@ -1067,12 +1090,13 @@ class Pipeline:
                 dis, r.pos, cig_ops, cig_lens, r.is_reverse, len(r.seq),
                 r.b2e_start, k)
 
+        collect = sp.task("pool.hmm_s", collect)
         pool = self._host_pool(len(reads))
         results = (list(pool.map(collect, reads, refs)) if pool is not None
                    else [collect(r, ref) for r, ref in zip(reads, refs)])
         ref_disamb = [d for d, _ in results]
         group_arrays = [g for _, g in results]
-        self.stage_detail["hmm.collect_host"] += time.time() - t_col
+        sp.add("hmm.collect_host", t_col)
 
         # two items per group (unmethylated, methylated)
         n_groups = [g["start_pos"].shape[0] for g in group_arrays]
@@ -1135,8 +1159,9 @@ class Pipeline:
                 h2d(meta, dev), h2d(packed_ref, dev), h2d(tab, dev),
                 ev_pool, *self._cpg_dev_tables(dev), k, n_narrow=n_narrow,
                 max_km=int(n_km.max()))
-            return ((items[order], HostCopy([scores])),
-                    meta.nbytes + packed_ref.nbytes + tab.nbytes)
+            nbytes = meta.nbytes + packed_ref.nbytes + tab.nbytes
+            sp.count("hmm.h2d_bytes", nbytes)
+            return (items[order], HostCopy([scores])), nbytes
 
         slots = []
         for slot, dev, ridx, ev_pool, ev_off in parts:
@@ -1145,26 +1170,29 @@ class Pipeline:
             items = np.nonzero(loc[it_read] >= 0)[0]
             slots.append((slot, dev, items, loc[it_read[items]], ridx,
                           ev_pool, ev_off))
-        t_disp = time.time()
+        t_disp = sp.now()
         pending = [res for _slot, _items, res in mesh.on_slots(
             "hmm", slots, launch, mesh.table_bytes(self.cpg_model))]
-        self.stage_detail["hmm.dispatch_enqueue"] += time.time() - t_disp
-        self.stage_detail["hmm.n_dispatch"] += 1
-        self.stage_detail["hmm.n_windows"] += n_items
+        sp.add("hmm.dispatch_enqueue", t_disp)
+        sp.count("hmm.n_dispatch", 1)
+        sp.count("hmm.n_windows", n_items)
         return reads, group_arrays, ref_disamb, n_items, pending
 
     def _meth_finish(self, states):
         """Wait for the scores and keep them per read as MethCalls in
         batch order (runner.py:2172)."""
-        t0 = time.time()
+        sp = self.spans
+        t0 = sp.now()
         k = self.cpg_model.k
         out_sites = {}
         for reads, group_arrays, ref_disamb, n_items, pending in states:
             scores = np.zeros(n_items, dtype=np.float32)
-            t_sync = time.time()
+            t_sync = sp.now()
             for order, copy in pending:
-                scores[order] = copy.wait()[0]
-            self.stage_detail["hmm.score_sync"] += time.time() - t_sync
+                got = copy.wait()[0]
+                scores[order] = got
+                sp.count("hmm.d2h_bytes", got.nbytes)
+            sp.add("hmm.score_sync", t_sync)
             gi = 0
             for ri, r in enumerate(reads):
                 g = group_arrays[ri]
@@ -1176,7 +1204,7 @@ class Pipeline:
                     llm=scores[2 * gi + 1:2 * (gi + n_g):2].copy(),
                     dis=ref_disamb[ri], r_pos=r.pos, k=k)
                 gi += n_g
-        self.stage_time["hmm"] += time.time() - t0
+        sp.add("hmm", t0)
         return out_sites
 
     def _fetch_ref_segment(self, r: ReadRecord) -> str:
@@ -1278,11 +1306,15 @@ class Pipeline:
         # rows render + write on the post-processor thread
         # (meth_main.c:610-742's output thread), overlapping the next
         # batch's compute
-        writer = AsyncWriter(out)
+        sp = self.spans
+        writer = AsyncWriter(out, sp)
         use_waves = self.supports_waves()
         batches = (self.batches(load=False) if use_waves
                    else self.batches_prefetched())
         try:
+            # a batch's span: from the loop's request for it to the
+            # hand-off of its last rows
+            t_batch = sp.now()
             for batch in batches:
                 if use_waves:
                     self.align_batch_waved(batch, meth_inline=True)
@@ -1294,17 +1326,18 @@ class Pipeline:
                     dbg = io.StringIO()
                     self.debug_prints(batch, dbg)
                     writer.write(dbg.getvalue())
-                t0 = time.time()
+                t0 = sp.now()
                 for r in batch:
                     if r.status:
                         self._count_failure(r)
                         continue
                     self.counters["processed"] += 1
-                    tg = time.time()
+                    tg = sp.now()
                     site_map = sites_by_read.get(id(r), {})
                     # a lazy get may sync HMM scores (counted under
                     # "hmm" by _meth_finish); exclude it from "output"
-                    t0 += time.time() - tg
+                    sp.add("output", t0, tg)
+                    t0 = sp.now()
                     if not site_map:
                         continue
                     contig = self.bam.references[r.tid]
@@ -1314,11 +1347,12 @@ class Pipeline:
                         _render_meth_rows, contig, r.qname, r.is_reverse,
                         site_map, opt.meth_out_version,
                         self.clip_start, self.clip_end))
-                self.stage_time["output"] += time.time() - t0
+                sp.add("output", t0)
+                t_batch = sp.add("batch", t_batch)
         finally:
-            t0 = time.time()
+            t0 = sp.now()
             writer.close()
-            self.stage_time["output"] += time.time() - t0
+            sp.add("output", t0, sub="output.drain")
 
     def _count_failure(self, r: ReadRecord):
         if r.status & FAILED_CALIBRATION:

@@ -4,7 +4,10 @@ reference's 3-stage pipeline (src/meth_main.c:610-742).
 The emit loops hand rendered chunks (str or bytes) to a bounded queue; a
 daemon thread encodes and writes them in order, so TSV emission and
 disk I/O overlap the next batch's compute.  ``close()`` drains the
-queue and re-raises any writer-side exception."""
+queue and re-raises any writer-side exception.  The thread times each
+chunk's rendering (``writer.render``) and write (``writer.write``) and
+counts the chunks (``writer.chunks``) in the pipeline's span recorder
+(``spans.Spans``)."""
 
 from __future__ import annotations
 
@@ -17,8 +20,9 @@ class AsyncWriter:
 
     _SENTINEL = object()
 
-    def __init__(self, out, max_chunks: int = 256):
+    def __init__(self, out, spans, max_chunks: int = 256):
         self._out = out
+        self._spans = spans
         self._buffer = getattr(out, "buffer", None)
         self._q: queue.Queue = queue.Queue(maxsize=max_chunks)
         self._exc = None
@@ -26,13 +30,16 @@ class AsyncWriter:
         self._thread.start()
 
     def _run(self):
+        sp = self._spans
         while True:
             chunk = self._q.get()
             if chunk is self._SENTINEL:
                 return
             try:
+                t0 = sp.now()
                 if callable(chunk):
                     chunk = chunk()
+                    t0 = sp.add("writer.render", t0)
                 if isinstance(chunk, bytes):
                     if self._buffer is not None:
                         self._out.flush()
@@ -41,6 +48,8 @@ class AsyncWriter:
                         self._out.write(chunk.decode("latin1"))
                 elif chunk:
                     self._out.write(chunk)
+                sp.add("writer.write", t0)
+                sp.count("writer.chunks", 1)
             except Exception as e:      # surfaced by close()
                 self._exc = e
 
