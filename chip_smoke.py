@@ -69,9 +69,9 @@ Phases (each prints one line; any failure raises and exits nonzero):
    that the kernel replaces);
 6. ultra run: 4 synthetic reads of 100-300 kb (datasets.ultra_dataset)
    through call-methylation and eventalign with the trace budget lowered
-   (a share of datasets.ULTRA_WINDOWED_SHARE bands a read), where every
+   (one launch of datasets.ULTRA_WINDOWED_SHARE bands), where every
    read takes the windowed ABEA, and again at the default settings, where
-   the 2-bit trace keeps every read on the unchunked ABEA (no window
+   every read takes the unchunked ABEA, ul300 in a solo launch (no window
    kernel launches): per read the same walk bit for bit, the same output
    files; walls, peak device memory, windows per read, the trace's bytes
    a band, the default share and each read's bands; the window
@@ -169,7 +169,7 @@ FLOAT_COLS = (4, 5, 6)      # meth-out-version 1: llr, ll_meth, ll_unmeth
 EA_FLOAT_COLS = (6, 7, 8, 10, 11, 12)    # tests/test_golden_e2e.py:104-125
 SUMMARY_FLOAT_COLS = (9, 10, 11, 12, 13)
 HMM_COLS_V2 = (5, 6, 7)     # meth-out-version 2: llr, ll_meth, ll_unmeth
-FORCE_BUDGET, FORCE_WIN = 1_000_000, 300  # every golden read windowed
+FORCE_BUDGET, FORCE_WIN = 100_000, 300  # every golden read windowed
 K9_WAVE_READS = 512         # [pores]: the R10 set timed at a full wave
 K9_WAVE_MIN = 128           # reads in its first ABEA launch (a wave)
 SYNTH_WIN = 1000
@@ -899,39 +899,46 @@ class WalkRecorder:
 
 
 def time_unchunked_kernels(torch, calls, plain_fills, win: int) -> dict:
-    """The unchunked ABEA kernels of an ultra run, timed at its shapes
-    (ms), and the fill's packed trace rows and llk held byte for byte, at
-    the windows of ``plain_fills`` ({tag: (base, the plain re-fill's
-    outputs on the host)}, from the windowed run: hold_windows), to the
-    plain re-fill's rows of the same reads (matched by their k-mer
-    counts)."""
+    """The unchunked ABEA kernels of an ultra run, timed at the shapes of
+    its launch with the longest chain (ms; at the defaults ul300's solo
+    launch), and every launch's packed trace rows and llk held byte for
+    byte, at the windows of ``plain_fills`` ({tag: (base, the plain
+    re-fill's outputs on the host)}, from the windowed run:
+    hold_windows), to the plain re-fill's rows of the same reads (matched
+    by their k-mer counts)."""
     import numpy as np
 
     from f5c_tpu_torch.ops import abea_cuda
 
-    fill, walk = calls["abea_fill"][0][0], calls["abea_walk"][0][0]
-    trace, llk, _ = abea_cuda.abea_fill(*fill)
-    band_off = fill[11].cpu().numpy()
-    rk_len = fill[5].cpu().numpy()
+    fills = [c[0] for c in calls["abea_fill"]]
+    chains = [int(f[11].diff().max()) for f in fills]
+    longest = int(np.argmax(chains))
+    fill, walk = fills[longest], calls["abea_walk"][longest][0]
     e, rows_held = 0, 0
-    for base, (_, p_tr, p_llk), p_rk in plain_fills.values():
-        for j, nk in enumerate(p_rk):
-            [i] = np.nonzero(rk_len == nk)[0]
-            rows = int(min(band_off[i + 1] - band_off[i] - base, win))
-            if rows <= 0:
-                continue
-            b = int(band_off[i]) + base
-            e = max(e, _int_err((trace[b:b + rows].cpu(),
-                                 llk[b:b + rows].cpu()),
-                                (p_tr[j, :rows], p_llk[j, :rows])))
-            rows_held += rows
+    for f in fills:
+        trace, llk, _ = abea_cuda.abea_fill(*f)
+        band_off = f[11].cpu().numpy()
+        rk_len = f[5].cpu().numpy()
+        for base, (_, p_tr, p_llk), p_rk in plain_fills.values():
+            for j, nk in enumerate(p_rk):
+                for i in np.nonzero(rk_len == nk)[0]:
+                    rows = int(min(band_off[i + 1] - band_off[i] - base,
+                                   win))
+                    if rows <= 0:
+                        continue
+                    b = int(band_off[i]) + base
+                    e = max(e, _int_err((trace[b:b + rows].cpu(),
+                                         llk[b:b + rows].cpu()),
+                                        (p_tr[j, :rows], p_llk[j, :rows])))
+                    rows_held += rows
+        del trace, llk
     if e or not rows_held:
         raise AssertionError("ultra: the unchunked fill's trace differs "
                              f"from the plain re-fill's ({e})")
     got = abea_cuda.abea_walk(*walk)
     walk_info = hold_walk_routes(torch, walk, got, "ultra unchunked")
     fill_ms = time_ms(torch, lambda: abea_cuda.abea_fill(*fill), 1)
-    chain = int(np.diff(band_off).max())
+    chain = chains[longest]
     return dict(
         fill_unchunked=fill_ms,
         fill_unchunked_ns_per_band=round(1e6 * fill_ms / chain, 1),
@@ -1129,11 +1136,11 @@ def mixed_long_short(torch, dev):
 
 def ultra_budget(runner, datasets) -> int:
     """The trace budget under which every ultra read takes the windowed
-    ABEA: a share of datasets.ULTRA_WINDOWED_SHARE bands a read."""
-    from f5c_tpu_torch.ops.abea import TRACE_ROW_BYTES
+    ABEA, the four in one window launch: one launch of
+    datasets.ULTRA_WINDOWED_SHARE bands."""
+    from f5c_tpu_torch.ops.abea_cuda import LAUNCH_BYTES_PER_BAND
 
-    return (runner.Pipeline.WAVE * (TRACE_ROW_BYTES + 4)
-            * datasets.ULTRA_WINDOWED_SHARE)
+    return int(LAUNCH_BYTES_PER_BAND * datasets.ULTRA_WINDOWED_SHARE)
 
 
 def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
@@ -1147,6 +1154,7 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
 
     from f5c_tpu_torch.ops import abea_ultra
     from f5c_tpu_torch.ops.abea import TRACE_ROW_BYTES
+    from f5c_tpu_torch.ops.abea_cuda import LAUNCH_BYTES_PER_BAND
 
     data = datasets.ultra_dataset(os.path.join(tmp, "ultra"), seed=2026)
     win = runner.Pipeline.WIN_BANDS
@@ -1241,7 +1249,7 @@ def ultra_phase(tmp, torch, card, runner, datasets, kernel_mods,
         q: abea_ultra.n_windows(w[3], win) for q, w in sorted(walks.items())},
         bands={q: w[3] for q, w in sorted(walks.items())},
         walk_steps={q: w[0] for q, w in sorted(walks.items())})
-    share = budget // (runner.Pipeline.WAVE * (TRACE_ROW_BYTES + 4))
+    share = int(budget // (runner.Pipeline.WAVE * LAUNCH_BYTES_PER_BAND))
     say("trace_layout", trace_row_bytes=TRACE_ROW_BYTES,
         default_share_bands=share,
         forced_share_bands=datasets.ULTRA_WINDOWED_SHARE,

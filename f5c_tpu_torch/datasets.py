@@ -137,10 +137,11 @@ def _revcomp(s: str) -> str:
     return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
 
 
-# a routing share (bands a read) under every read of ultra_dataset: a
-# TRACE_BYTES_BUDGET of WAVE x 36 B x this sends all four to the windowed
-# path
-ULTRA_WINDOWED_SHARE = 200_000
+# bands of one launch, under every read of ultra_dataset (270,240 and
+# up) and over four windows of WIN_BANDS (262,144): a TRACE_BYTES_BUDGET
+# of abea_cuda.LAUNCH_BYTES_PER_BAND x this sends all four reads to the
+# windowed path, in one window launch
+ULTRA_WINDOWED_SHARE = 265_000
 
 
 def ultra_dataset(dst: str, seed: int = 2026, scale: float = 1.0) -> dict:
@@ -152,11 +153,11 @@ def ultra_dataset(dst: str, seed: int = 2026, scale: float = 1.0) -> dict:
     soft clips at both ends, a 25-base insertion and a 35-base deletion,
     ul300 forward with 1 % mismatches -- about 0.75 M k-mers and 6.8 M
     samples.  At ~1.7 events per base (2.70 bands a base) the reads have
-    270,240 to 811,435 bands, under the default routing share of 868,055
-    (Pipeline._takes_window_path): at the defaults every read takes the
-    unchunked fill, and a TRACE_BYTES_BUDGET whose share is under
-    270,240 bands (ULTRA_WINDOWED_SHARE) sends all four to the windowed
-    path.  ``scale``
+    270,240 to 811,435 bands: at the defaults every read takes the
+    unchunked fill, ul300 in a solo launch, being over the wave share of
+    796,178 bands (Pipeline._leaves_wave), and a TRACE_BYTES_BUDGET under
+    one launch of 270,240 bands (ULTRA_WINDOWED_SHARE) sends all four to
+    the windowed path (Pipeline._takes_window_path).  ``scale``
     shrinks the genome and the reads (not the clips and indels), for runs
     of the plain versions on the host."""
     rng = np.random.default_rng(seed)

@@ -29,6 +29,11 @@ KMER_MAX = 15        # a k-mer's bases lie in two words; its rank in an i32
 # The walk's route: reads of at least this many bands take the tiled walk,
 # shorter ones the one-warp walk (PERF.md, scripts/abea_walk_time.py)
 TILED_MIN_BANDS = 512
+# Device bytes a launch allocates a band: the trace row and the llk
+# (abea_fill), and the tiled walk's maps and entries, MAP_ENTRIES int16
+# and four int32 a tile of WALK_TILE bands (walk_tiled_launch): 39.25
+LAUNCH_BYTES_PER_BAND = (TRACE_ROW_BYTES + 4
+                         + (2 * MAP_ENTRIES + 16) / WALK_TILE)
 
 
 def check_seqs(fn: str, seq_packed, seq_off, rk_len, k, dev, B) -> None:

@@ -12,8 +12,9 @@ with nvcc and the flags of ``ops/_build.py`` into a library of their own
 under ``build/abea_walk_time/``; this tree's come from
 ``_build.library()``.  The launches are the main path's, recorded from
 this tree's CLI (call-methylation, host events): golden x85's first K1
-and K4 launch (510 reads), ultra x4's one unchunked launch at the
-default budget (811,435 bands on the longest read), and, with the budget
+and K4 launch (510 reads), ultra x4's unchunked launch of the longest
+chain at the default budget (ul300's solo launch, 811,435 bands), and,
+with the budget
 lowered so that every ultra read is windowed
 (``chip_smoke.ultra_budget``), K3's forward launch, the re-fill of a
 window every read fills and K10's walk of that window; and the fill and
@@ -554,8 +555,12 @@ def main() -> int:
             result["routes"].append(route_times(torch, "mixed_54k", wa, 5))
         del fill, wa, fa, t
         calls = record_launches(torch, ultra, os.path.join(tmp, "u.tsv"))
-        fa, wa = calls["abea_fill"][0][0], calls["abea_walk"][0][0]
-        chain = int(fa[11].diff().max())
+        # the launch of the longest chain: at the defaults ul300's solo
+        # launch
+        chains = [int(c[11].diff().max()) for c, _ in calls["abea_fill"]]
+        li = int(np.argmax(chains))
+        fa, wa = calls["abea_fill"][li][0], calls["abea_walk"][li][0]
+        chain = chains[li]
         L.append(measure(torch, libs, "ultra_x4_unchunked", fa,
                          wa if walks else None, False, 3, chain))
         del calls, fa, wa

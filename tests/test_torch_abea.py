@@ -442,14 +442,11 @@ def test_tiled_walk_phases_on_random_traces(tile):
     assert ((start[:, 0] & port_abea.MAP_STOP) != 0).any()
 
 
-class _Launched(Exception):
-    """Raised by the ABEA spy once it holds a launch's arguments."""
-
-
-def _first_abea_launch(data: dict) -> tuple:
-    """The arguments of the first unchunked ABEA launch (abea_align) of a
+def _abea_launches(data: dict) -> list:
+    """The arguments of every unchunked ABEA launch (abea_align) of a
     call-methylation run of the port's Pipeline on the CPU over ``data``,
-    stopped there."""
+    each answered with every read unaligned (start_e -1), so that the run
+    goes on without filling."""
     import io
 
     from f5c_tpu_torch.pipeline.runner import Options, Pipeline
@@ -458,22 +455,25 @@ def _first_abea_launch(data: dict) -> tuple:
 
     def spy(*a, **kw):
         got.append(a)
-        raise _Launched
+        B = a[2].shape[0]
+        return (torch.zeros(a[-2], dtype=torch.uint8),
+                torch.full((B,), -1, dtype=torch.int32),
+                torch.zeros(B, dtype=torch.int32))
 
     opt = Options(min_mapq=0, meth_out_version=1, slow5_path=data["slow5"])
     pipe = Pipeline(data["bam"], data["genome"], data["reads"], opt,
                     device=torch.device("cpu"))
     with pytest.MonkeyPatch.context() as m:
         m.setattr(abea_cuda, "abea_align", spy)
-        with pytest.raises(_Launched):
-            pipe.call_methylation(out=io.StringIO())
-    return got[0]
+        pipe.call_methylation(out=io.StringIO())
+    return got
 
 
 def test_fill_fast_division_routes(tmp_path):
     """Every golden read and every read of ultra x4 (4 reads of 100-300
-    kb, one launch at the defaults) stays in the fast quotient's range;
-    of the far inputs exactly the reads outside it leave it."""
+    kb: a wave's launch and ul300's solo launch at the defaults) stays in
+    the fast quotient's range; of the far inputs exactly the reads
+    outside it leave it."""
     from test_golden_e2e import GOLDEN
 
     from f5c_tpu_torch import datasets
@@ -483,9 +483,10 @@ def test_fill_fast_division_routes(tmp_path):
         str(tmp_path / "golden"))
     ultra = datasets.ultra_dataset(str(tmp_path / "ultra"), seed=2026)
     for data, n_reads in ((golden, 6), (ultra, 4)):
-        args = _first_abea_launch(data)
-        assert args[2].shape[0] == n_reads
-        assert port_abea.fill_routes(*args[:12]).all()
+        launched = _abea_launches(data)
+        assert sum(args[2].shape[0] for args in launched) == n_reads
+        for args in launched:
+            assert port_abea.fill_routes(*args[:12]).all()
     x = _tensors(synthetic.abea_far_inputs(
         np.random.default_rng(19), builtin_model("dna_r9_nucleotide")))
     routes = port_abea.fill_routes(*(x[k] for k in (

@@ -72,7 +72,8 @@ def test_cli_eventalign_golden(golden_dir, monkeypatch, windowed):
             routed.extend(r.qname for r in todo)
             align_ultra_batch(self, todo, ranks)
 
-        monkeypatch.setattr(Pipeline, "TRACE_BYTES_BUDGET", 1_000_000)
+        # under each golden read's own launch (2,679 x 39.25 B and up)
+        monkeypatch.setattr(Pipeline, "TRACE_BYTES_BUDGET", 100_000)
         monkeypatch.setattr(Pipeline, "WIN_BANDS", 300)
         monkeypatch.setattr(Pipeline, "_align_ultra_batch", spy)
     rc, out, summary = _eventalign(golden_dir, f"w{int(windowed)}")

@@ -137,8 +137,9 @@ def test_bam_ordered_path(golden_dir, capsys):
 def test_reads_past_tpu_limits_are_routed():
     """Reads past the JAX runner's TPU limits (65,536 k-mers or 131,072
     events) used to raise here.  They now take the port's routing rule:
-    the unchunked path while their trace fits a wave's share of the
-    budget, the windowed path of the ultra-long reads beyond it."""
+    the unchunked path in their wave while their launch fits a wave's
+    share of the budget, in a solo launch while it fits the budget, the
+    windowed path of the ultra-long reads beyond it."""
     from types import SimpleNamespace
 
     from f5c_tpu.models import builtin_model
@@ -147,13 +148,21 @@ def test_reads_past_tpu_limits_are_routed():
     pipe = Pipeline.bare(Options(), builtin_model("dna_r9_nucleotide"))
     ok = SimpleNamespace(qname="r", seq="A" * 2000, n_events=4000)
     assert not pipe._takes_window_path(ok)
+    assert not pipe._leaves_wave(ok)
     for n_bases, n_events in ((70_000, 1000), (1000, 140_000)):
         long = SimpleNamespace(qname="r", seq="A" * n_bases,
                                n_events=n_events)
         assert not pipe._takes_window_path(long)
-    # ~268,000 bands: under the default share of 868,055 (2 bits a cell)
+        assert not pipe._leaves_wave(long)
+    # ~268,000 bands: under the default share of 796,178 (39.25 B a band)
     long100 = SimpleNamespace(qname="r", seq="A" * 100_000,
                               n_events=168_000)
     assert not pipe._takes_window_path(long100)
+    assert not pipe._leaves_wave(long100)
+    # ~890,000 bands: over the share, in a solo launch at the default
+    # budget, windowed under a budget of one launch of 800,000 bands
     ultra = SimpleNamespace(qname="r", seq="A" * 330_000, n_events=560_000)
+    assert pipe._leaves_wave(ultra)
+    assert not pipe._takes_window_path(ultra)
+    pipe.TRACE_BYTES_BUDGET = 800_000 * 157 // 4
     assert pipe._takes_window_path(ultra)

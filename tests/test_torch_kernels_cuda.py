@@ -22,7 +22,10 @@ window walk by both are held to the plain walks and the plain tiled walk
 on fills and on random traces (the chase's cell-by-cell path, the
 last-row clamp); K1 and both K3 instances on a 13,600-band chain and on
 reads outside the fast quotient's range (__fdiv_rn), the fast quotient
-itself against __fdiv_rn through both kernels' probes.
+itself against __fdiv_rn through both kernels' probes.  ultra x4 through
+the Pipeline: a read over the wave share in a solo launch peaks no higher
+in device memory than the same read left in its wave, with the same
+output.
 """
 
 import numpy as np
@@ -813,3 +816,38 @@ def test_wrappers_launch_on_their_tensors_device(cuda):
     assert torch.equal(fast.view(torch.int32), ref.view(torch.int32))
     assert np.array_equal(host[0], walk[0].cpu().numpy())
     assert np.array_equal(host[1], scores.cpu().numpy())
+
+
+def test_solo_launch_peaks_no_higher_than_the_wave(cuda, tmp_path):
+    """ultra x4 through call-methylation on the card: at the defaults
+    ul300 (811,435 bands, over the wave share of 796,178) takes a solo
+    launch queued behind the wave of the other three; at twice the
+    budget it stays in the wave.  The run with the solo launch holds no
+    more device memory at its peak (torch.cuda.max_memory_allocated) and
+    writes the same bytes."""
+    import io
+
+    from f5c_tpu_torch import datasets
+    from f5c_tpu_torch.pipeline.runner import Options, Pipeline
+
+    d = datasets.ultra_dataset(str(tmp_path / "ultra"))
+    peaks, outs = {}, {}
+    for path, scale in (("solo", 1), ("wave", 2)):
+        pipe = Pipeline(d["bam"], d["genome"], d["reads"],
+                        Options(min_mapq=0, slow5_path=d["slow5"]),
+                        device=cuda)
+        pipe.TRACE_BYTES_BUDGET = scale * Pipeline.TRACE_BYTES_BUDGET
+        torch.cuda.synchronize(cuda)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        buf = io.StringIO()
+        pipe.call_methylation(out=buf)
+        torch.cuda.synchronize(cuda)
+        peaks[path] = torch.cuda.max_memory_allocated(cuda) - base
+        outs[path] = buf.getvalue()
+        assert pipe.counters["processed"] == 4
+        assert pipe.stage_detail["align.solo_reads"] == int(path == "solo")
+        del pipe
+    assert outs["solo"] == outs["wave"] and outs["solo"].count("\n") > 1
+    assert peaks["solo"] <= peaks["wave"], peaks

@@ -183,9 +183,11 @@ def test_align_bands_equal_band_offsets(recorded, sub):
 
 def test_windowed_bands_and_window_spans(golden):
     """The golden reads forced through the windowed ABEA: their bands
-    count as ``align.bands_windowed``, a window dispatch a span."""
+    count as ``align.bands_windowed``, a window dispatch a span (a
+    budget under each read's own launch, 2,679 x 39.25 B and up, and
+    over six reads' window launch, 6 x 300 x 39.25 B)."""
     pipe = _pipe(golden)
-    pipe.TRACE_BYTES_BUDGET = 1_000_000
+    pipe.TRACE_BYTES_BUDGET = 100_000
     pipe.WIN_BANDS = 300
     pipe.spans.start()
     _run(pipe, "call-methylation")

@@ -7,10 +7,16 @@ abea_ultra.py), bit for bit, and its routing in the port's Pipeline.
   abea_ref.align on mixed reads (around 128 k-mers, bands that straddle
   the trim column, a read with no events whose start_e is -1, a read
   that fails QC), in windows of 97, 256 and 1,000 bands;
-- the routing rule, on the routing function alone;
+- the routing rule, on the routing functions alone: a read stays in its
+  wave, takes a solo launch or is windowed by its launch's 39.25 B a
+  band, and solo launches group longest first within the budget;
 - the golden reads forced through the windowed path in the Pipeline on
   the CPU: the same pairs and scalings as the normal path, and 0 deviant
   rows against meth.exp from the CLI;
+- solo launches: dispatched right behind their wave's launch, before the
+  host finishes that wave, in the waves and in BAM order, and counted in
+  ``align.solo_reads``; the ultra set's TSV byte-identical with every
+  read in the wave, every read solo and every read windowed;
 - --skip-ultra / --ultra-thresh through the port's CLI;
 - the tiled window walk's plain version (walk_window_tiled_plain) window
   by window against walk_window_plain inside the windowed path (windows
@@ -40,8 +46,13 @@ from f5c_tpu_torch.pipeline.runner import Options, Pipeline
 N_KMERS = [20, 45, 100, 127, 128, 129, 250, 400, 90]
 UNRELATED = 6         # events that do not follow the sequence: fails QC
 NO_EVENTS = 8         # no events at all: start_e == -1
-FORCE_BUDGET = 1_000_000   # every golden read over its share of a wave
+# every golden read windowed: under its own launch (2,679 to 3,490 bands
+# x 39.25 B), and six reads of FORCE_WIN bands in one window launch
+FORCE_BUDGET = 100_000
 FORCE_WIN = 300
+# golden reads over 3,100 bands leave the wave (gr0, gr1, gr4) and take
+# one solo launch; the other three stay in the wave
+SOLO_BUDGET = 3_100 * 128 * 157 // 4
 FLOAT_COLS = {4, 5, 6}     # meth-out-version 1: llr, ll_meth, ll_unmeth
 
 # the wrappers' arguments: the reads' sequences 2-bit packed
@@ -172,27 +183,82 @@ def test_window_state_and_trace_layout(mixed):
         assert not tr[i, m:].any() and not lk[i, m:].any()
 
 
-def _read(n_bases: int, n_events: int):
-    return SimpleNamespace(qname="r", seq="A" * n_bases, n_events=n_events)
+def _read(n_bases: int, n_events: int, qname: str = "r"):
+    return SimpleNamespace(qname=qname, seq="A" * n_bases, n_events=n_events)
+
+
+def _bands_read(model, n_bands: int, qname: str = "r"):
+    """A read of ``n_bands`` bands: 1,000 bases and the rest events."""
+    return _read(1000, n_bands - (1000 - model.k + 1) - 2, qname)
 
 
 def test_routing_rule(model):
-    """A read takes the windowed path when n_bands x (32 + 4) bytes (2
-    bits a band cell and the band's lower-left k-mer) exceeds
-    TRACE_BYTES_BUDGET / WAVE (31.25 MB, 868,055 bands at the defaults);
-    a read past the JAX runner's TPU limits no longer raises."""
+    """A read leaves its wave when n_bands x 39.25 bytes (2 bits a band
+    cell, the band's lower-left k-mer and the tiled walk's maps and
+    entries) exceeds TRACE_BYTES_BUDGET / WAVE (31.25 MB, 796,178 bands
+    at the defaults), and takes the windowed path only when its own
+    launch exceeds TRACE_BYTES_BUDGET; a read past the JAX runner's TPU
+    limits no longer raises."""
     pipe = Pipeline.bare(Options(), model)
     assert (pipe.TRACE_BYTES_BUDGET, pipe.WAVE) == (4_000_000_000, 128)
     assert pipe.WIN_BANDS == 1 << 16
+    assert abea_cuda.LAUNCH_BYTES_PER_BAND == 39.25
     k = model.k
     assert not pipe._takes_window_path(_read(70_000 + k - 1, 1000))
-    cap = pipe.TRACE_BYTES_BUDGET // (pipe.WAVE * 36)
-    assert cap == 868_055
+    cap = int(pipe.TRACE_BYTES_BUDGET // (pipe.WAVE * 39.25))
+    assert cap == 796_178
     L = 300_000
     under = _read(L, cap - (L - k + 1) - 2)
     over = _read(L, cap + 1 - (L - k + 1) - 2)
+    assert not pipe._leaves_wave(under)
+    assert pipe._leaves_wave(over)
     assert not pipe._takes_window_path(under)
-    assert pipe._takes_window_path(over)
+    assert not pipe._takes_window_path(over)
+    alone = int(pipe.TRACE_BYTES_BUDGET // 39.25)
+    assert alone == 101_910_828
+    assert not pipe._takes_window_path(_bands_read(model, alone))
+    assert pipe._takes_window_path(_bands_read(model, alone + 1))
+
+
+@pytest.mark.parametrize("path, budget", [
+    ("wave", 157_000), ("solo", 156_999), ("solo", 39_250),
+    ("windowed", 39_249)])
+def test_routing_rule_at_lowered_budget(model, path, budget):
+    """At a lowered budget, by 39.25 B a band: a read of 1,000 bands
+    (39,250 B) stays in a wave of 4 reads up to a budget of 157,000 B,
+    takes a solo launch below that down to 39,250 B, and is windowed
+    below that (at 36 B a band it would stay in the wave at 156,999)."""
+    pipe = Pipeline.bare(Options(), model)
+    pipe.WAVE = 4
+    pipe.TRACE_BYTES_BUDGET = budget
+    lists = {"wave": [], "solo": [], "windowed": []}
+    r = _bands_read(model, 1000)
+    pipe._abea_route(r, lists["wave"], lists["solo"], lists["windowed"])
+    assert {k: len(v) for k, v in lists.items()} == {
+        k: int(k == path) for k in lists}
+    assert pipe._leaves_wave(r) == (path != "wave")
+    assert pipe._takes_window_path(r) == (path == "windowed")
+
+
+def test_solo_launches_group_longest_first(model):
+    """A wave's launches: its reads in one, then the reads that left it
+    (over 636 bands at a budget of 100,000 B and waves of 4), longest
+    first, in groups whose launches fit the budget."""
+    pipe = Pipeline.bare(Options(), model)
+    pipe.WAVE = 4
+    pipe.TRACE_BYTES_BUDGET = 100_000
+    wave = [_bands_read(model, 600, "w")]
+    solo = [_bands_read(model, n, f"s{n}")
+            for n in (1000, 2000, 700, 1500, 800)]
+    assert not pipe._leaves_wave(wave[0])
+    for r in solo:
+        assert pipe._leaves_wave(r) and not pipe._takes_window_path(r)
+    parts = pipe._wave_launches(wave, solo)
+    assert [[r.qname for r in p] for p in parts] == [
+        ["w"], ["s2000"], ["s1500", "s1000"], ["s800", "s700"]]
+    for p in parts[1:]:
+        assert sum(pipe._launch_bytes(r) for r in p) <= 100_000
+    assert pipe._wave_launches([], solo[:1]) == [solo[:1]]
 
 
 @pytest.fixture(scope="module")
@@ -210,9 +276,16 @@ def _truth():
 
 def _pipeline(golden_dir, **kw):
     class Recording(Pipeline):
-        """Keeps every read's ABEA result and the windowed batches."""
+        """Keeps every read's ABEA result, the windowed batches and the
+        order of the unchunked dispatches and finishes."""
+
+        def _dispatch_abea(self, todo, windowed=False):
+            if not windowed:
+                self.order.append(("dispatch", [r.qname for r in todo]))
+            return super()._dispatch_abea(todo, windowed)
 
         def _finish_abea(self, todo, ranks, launch):
+            self.order.append(("finish", [r.qname for r in todo]))
             super()._finish_abea(todo, ranks, launch)
             for r in todo:
                 sc = r.scaling
@@ -229,7 +302,7 @@ def _pipeline(golden_dir, **kw):
                      os.path.join(golden_dir, "genome.fa"),
                      os.path.join(golden_dir, "reads.fasta"), opt,
                      device=torch.device("cpu"))
-    pipe.seen, pipe.ultra_batches = {}, []
+    pipe.seen, pipe.ultra_batches, pipe.order = {}, [], []
     return pipe
 
 
@@ -252,6 +325,32 @@ def test_pipeline_window_path_matches_normal(golden_dir, print_raw, capsys):
         assert a[0] == b[0] == 0, q
         np.testing.assert_array_equal(a[1], b[1], err_msg=q)
         assert a[2:] == b[2:], q
+    _tolerant_compare(out.getvalue(), _truth(), FLOAT_COLS)
+
+
+@pytest.mark.parametrize("print_raw", [False, True])
+def test_solo_launch_queued_before_its_wave_finishes(golden_dir, print_raw,
+                                                     capsys):
+    """At SOLO_BUDGET the three golden reads over 3,100 bands leave the
+    wave (print_raw=False) or the batch's launch (True, align_batch) and
+    are filled in one solo launch, longest first, dispatched right after
+    that launch and before the host finishes it; then finished in turn.
+    align.solo_reads counts them; the calls stay within meth.exp."""
+    pipe = _pipeline(golden_dir, print_raw=print_raw)
+    pipe.TRACE_BYTES_BUDGET = SOLO_BUDGET
+    out = io.StringIO()
+    pipe.call_methylation(out=out)
+    capsys.readouterr()
+    wave = sorted(q for _, names in pipe.order[:1] for q in names)
+    solo = ["gr4", "gr1", "gr0"]     # 3,490, 3,239 and 3,208 bands
+    assert wave == ["gr2", "gr3", "gr5"]
+    assert [(e, sorted(n) if i != 1 else n)
+            for i, (e, n) in enumerate(pipe.order)] == [
+        ("dispatch", wave), ("dispatch", solo), ("finish", wave),
+        ("finish", sorted(solo))]
+    assert pipe.ultra_batches == []
+    assert pipe.stage_detail["align.solo_reads"] == len(solo)
+    assert pipe.counters["processed"] == 6
     _tolerant_compare(out.getvalue(), _truth(), FLOAT_COLS)
 
 
@@ -304,11 +403,11 @@ def test_cli_skip_ultra(golden_dir):
 
 def test_ultra_dataset_reads_take_window_path(tmp_path, model):
     """At the default budget every read of the 100-300 kb synthetic set
-    stays on the unchunked path (the longest has 811,435 bands, under the
-    share of 868,055), and under chip_smoke.py's forced budget (a share of
-    datasets.ULTRA_WINDOWED_SHARE bands) every read is routed to the
-    windowed path (events detected as the pipeline does; nothing
-    aligned)."""
+    stays on the unchunked path (the longest, 811,435 bands, over the
+    wave share of 796,178, in a solo launch), and under chip_smoke.py's
+    forced budget (one launch of datasets.ULTRA_WINDOWED_SHARE bands)
+    every read is routed to the windowed path, the four in one window
+    launch (events detected as the pipeline does; nothing aligned)."""
     from f5c_tpu import native
     from f5c_tpu.io.fasta import read_fastx
     from f5c_tpu.io.slow5 import Slow5File
@@ -319,8 +418,10 @@ def test_ultra_dataset_reads_take_window_path(tmp_path, model):
                                                             300]
     pipe = Pipeline.bare(Options(), model)
     forced = Pipeline.bare(Options(), model)
-    forced.TRACE_BYTES_BUDGET = (forced.WAVE * 36
-                                 * datasets.ULTRA_WINDOWED_SHARE)
+    forced.TRACE_BYTES_BUDGET = int(abea_cuda.LAUNCH_BYTES_PER_BAND
+                                    * datasets.ULTRA_WINDOWED_SHARE)
+    assert forced.TRACE_BYTES_BUDGET // (
+        forced.WIN_BANDS * abea_cuda.LAUNCH_BYTES_PER_BAND) == 4
     f = Slow5File(d["slow5"])
     bands = []
     try:
@@ -329,6 +430,7 @@ def test_ultra_dataset_reads_take_window_path(tmp_path, model):
             r = SimpleNamespace(qname=q, seq=seqs[q], n_events=n_events)
             bands.append(n_events + len(seqs[q]) - model.k + 3)
             assert not pipe._takes_window_path(r), q
+            assert pipe._leaves_wave(r) == (q == "ul300"), q
             assert forced._takes_window_path(r), q
     finally:
         f.close()
@@ -336,11 +438,16 @@ def test_ultra_dataset_reads_take_window_path(tmp_path, model):
 
 
 def test_ultra_dataset_windowed_matches_unchunked(tmp_path):
-    """A small copy of the ultra set through call-methylation on the CPU,
-    every read windowed, then none: byte-identical output."""
+    """A small copy of the ultra set (2,702 to 8,136 bands) through
+    call-methylation on the CPU, every read windowed (a budget under one
+    read's launch), every read in a solo launch (over each read's launch,
+    under a wave's share of one), then every read in the wave:
+    byte-identical output."""
     d = datasets.ultra_dataset(str(tmp_path / "ultra"), scale=0.01)
     out = {}
-    for budget in (1_000_000, 4_000_000_000):
+    budgets = {"windowed": 100_000, "solo": 1_000_000,
+               "wave": 4_000_000_000}
+    for path, budget in budgets.items():
         pipe = Pipeline(d["bam"], d["genome"], d["reads"],
                         Options(min_mapq=0, slow5_path=d["slow5"]),
                         device=torch.device("cpu"))
@@ -350,10 +457,12 @@ def test_ultra_dataset_windowed_matches_unchunked(tmp_path):
         pipe.call_methylation(out=buf)
         assert pipe.counters["processed"] == 4
         assert pipe.stage_detail["align.ultra_reads"] == (
-            4 if budget == 1_000_000 else 0)
-        out[budget] = buf.getvalue()
-    assert out[1_000_000] == out[4_000_000_000]
-    assert len({ln.split("\t")[4] for ln in out[1_000_000].split("\n")[1:]
+            4 if path == "windowed" else 0)
+        assert pipe.stage_detail["align.solo_reads"] == (
+            4 if path == "solo" else 0)
+        out[path] = buf.getvalue()
+    assert out["windowed"] == out["solo"] == out["wave"]
+    assert len({ln.split("\t")[4] for ln in out["windowed"].split("\n")[1:]
                 if ln}) == 4
 
 
